@@ -3,8 +3,8 @@
  * This is the framework's C realization of the reference's native component —
  * the sequential fixed-point min-sum / offset-min-sum message-passing loop
  * (BASELINE.json:5 "the sequential message-passing loop ... fixed-point
- * saturation arithmetic"). On TPU the production hot loop is the Pallas
- * kernel (ldpc_tpu/kernels/minsum_pallas.py); this C module exists to
+ * saturation arithmetic"). On the GPU the production hot loop is the CUDA
+ * kernel (csrc/minsum_qc.cu); this C module exists to
  * (a) provide a fast bit-exact oracle for large Monte-Carlo cross-checks of
  * the golden NumPy model (which is deliberately slow), and (b) preserve a
  * CPU-native decode path with the reference's exact semantics.

@@ -39,7 +39,7 @@ Rate matching is modeled per base column exactly as proto_de.column
 classification: punctured blocks get sigma_ch = 0 (never transmitted),
 shortened blocks get sigma_ch = SIGMA_MAX (known bits).
 
-Pure NumPy; never touches the TPU.
+Pure NumPy; never touches the accelerator.
 """
 from __future__ import annotations
 

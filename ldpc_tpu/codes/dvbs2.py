@@ -13,7 +13,7 @@ profiles: N1 columns of high degree d1, the rest degree 3, all parity
 columns degree 2), realized as a quasi-cyclic code with Z=360 — the
 standard's own column-group period — and an encodable 802.11n-style
 dual-diagonal parity part standing in for the serial accumulator (both give
-degree-2 parity chains; the QC form keeps the TPU kernel's Z-parallel layout
+degree-2 parity chains; the QC form keeps the QC decoders' Z-parallel layout
 applicable). standard_exact=False, and the '_like' name suffix marks every
 instance.
 

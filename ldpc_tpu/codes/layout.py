@@ -1,7 +1,7 @@
 """Layout compiler: LDPCCode -> gather/scatter-friendly array layouts.
 
 The reference walks linked adjacency lists sequentially (BASELINE.json:5 'the
-sequential message-passing loop'); on TPU the decoder instead consumes dense,
+sequential message-passing loop'); here the decoders instead consume dense,
 statically-shaped index tensors (BASELINE.json:5 'H-matrix storage becomes a
 gather/scatter-friendly edge-index layout'). This module compiles an LDPCCode
 into:
@@ -11,8 +11,9 @@ into:
   * dense padded per-check / per-variable edge-index tables for gather-based
     flooding updates;
   * a per-layer QC view (base columns + circulant shifts per base row) for the
-    layered Pallas kernel, where one layer's Z checks are processed as a unit
-    and each variable is touched at most once per layer.
+    QC decoders (ops/decode_qc.py, kernels/minsum_cuda.py), where one layer's
+    Z checks are processed as a unit and each variable is touched at most once
+    per layer.
 """
 from __future__ import annotations
 
@@ -147,6 +148,24 @@ def compile_qc_layout(code: LDPCCode) -> QCLayout:
     return QCLayout(Z=Z, mb=mb, nb=nb, max_row_deg=max_row_deg,
                     layer_cols=layer_cols, layer_shifts=layer_shifts,
                     layer_mask=layer_mask)
+
+
+def qc_entries(code: LDPCCode):
+    """(QCLayout, layers): the QC view plus static per-layer entry lists
+    [(base_col, shift), ...] in ascending column order."""
+    qc = compile_qc_layout(code)
+    layers = []
+    for i in range(qc.mb):
+        ents = [
+            (int(qc.layer_cols[i, t]), int(qc.layer_shifts[i, t]))
+            for t in range(qc.max_row_deg)
+            if qc.layer_mask[i, t]
+        ]
+        if len(ents) < 2:
+            raise ValueError("degree-1 base rows are unsupported by the QC "
+                             "decoders")
+        layers.append(ents)
+    return qc, layers
 
 
 def compile_layers_general(code: LDPCCode) -> list[np.ndarray]:

@@ -27,11 +27,8 @@ def hamming74() -> LDPCCode:
 
 def toy_qc_odd(Z: int = 16) -> LDPCCode:
     """A 5x10 base-matrix QC code (rate 1/2, n = 10Z) with an ODD number of
-    base rows — the small stand-in for DVB-S2 n=16200 r=1/2 (mb=25) in
-    interpret-mode tests of the stream kernels' odd-mb path (two decoding
-    iterations unrolled per loop body, DMA slot parity by GLOBAL layer
-    index). The default Z=16 keeps Z % 8 == 0 so every kernel variant
-    (dynamic/static/resident/resident-et) accepts it."""
+    base rows — the small stand-in for DVB-S2 n=16200 r=1/2 (mb=25) in the
+    QC decoder's odd-mb tests."""
     rng = np.random.default_rng(0x0DD)
     from .qcstruct import gen_qc_code
 

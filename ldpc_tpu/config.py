@@ -4,7 +4,7 @@ These pin the free parameters that the (unavailable) reference source would have
 fixed at compile time — quantization format, offset value, saturation rule,
 schedule — per SURVEY.md §5.6 and §8. The golden model (ldpc_tpu.golden) is the
 single source of truth for the bit-exact semantics these configs describe; the
-XLA ops and Pallas kernels must match it exactly.
+XLA ops and the CUDA kernel must match it exactly.
 
 Reference parity note: the reference (tyc85/FixedPointLDPC) is a C/MATLAB
 simulator whose canonical run is 802.11n rate-1/2 n=648 QC-LDPC, BPSK over AWGN,
@@ -48,7 +48,7 @@ class QuantConfig:
     alpha_shift: int = 2
 
     def __post_init__(self):
-        # The whole fixed-point datapath (jnp quantize op, Pallas kernels,
+        # The whole fixed-point datapath (jnp quantize op, CUDA kernel,
         # C-oracle marshalling) stores channel LLRs as int8: bits > 8 would
         # silently WRAP in the int8 cast instead of saturating.
         if not 2 <= self.bits <= 8:
@@ -138,7 +138,7 @@ class DecoderConfig:
     schedule: str = "flooding"  # 'flooding' | 'layered'
     max_iter: int = 20
     early_term: bool = True
-    # Two-phase early termination (TPU operating-point optimization): run
+    # Two-phase early termination (operating-point optimization): run
     # phase1_iters on the whole batch, then COMPACT the unconverged lanes
     # (a static-capacity gather) and restart only those with the full
     # max_iter budget. Bit-exact: integer min-sum is deterministic, so the
@@ -168,14 +168,12 @@ class RunConfig:
     # The reference's classic shortcut: transmit the all-zeros codeword
     # (valid for any linear code + symmetric channel), skipping the encoder.
     all_zeros: bool = False
-    # RNG placement: "host" = XLA threefry chain (partitionable; same-seed
-    # counters identical across mesh sizes — the SURVEY.md §4.2 determinism
-    # contract). "device" = the Monte-Carlo megakernel: info bits + AWGN from
-    # the TPU per-core hardware PRNG inside the decode kernel (a different,
-    # still fully deterministic random family — streams keyed by
-    # (seed, sub-batch, batch tile); statistically, not bitwise, comparable
-    # to host mode). Falls back to host off-TPU / off the fast path.
-    rng: str = "host"
+
+
+# Fields that no longer exist, with the one value whose behaviour is what the
+# code now does: stored configs (results, checkpoints) carrying exactly that
+# value still load and resume.
+RETIRED_FIELDS = {("run", "rng"): "host"}
 
 
 @dataclass(frozen=True)
@@ -192,6 +190,9 @@ class SimConfig:
     @staticmethod
     def from_json(s: str) -> "SimConfig":
         d = json.loads(s)
+        for (section, name), value in RETIRED_FIELDS.items():
+            if d[section].pop(name, value) != value:
+                raise ValueError(f"{section}.{name} is no longer supported")
         return SimConfig(
             code=CodeConfig(**d["code"]),
             channel=ChannelConfig(**d["channel"]),
@@ -230,10 +231,7 @@ PRESETS = {
                               phase1_iters=-1),
         run=RunConfig(batch=1024),
     ),
-    # BASELINE.json:9 — 5G NR layered. Fixed-iteration like the DVB preset:
-    # Z=384 state exceeds VMEM, and in the HBM-streaming regime the
-    # pipelined stream kernel (fixed iters, layered) beats the XLA path
-    # with early termination (measured round 2, docs/PERFORMANCE.md).
+    # BASELINE.json:9 — 5G NR layered, fixed iterations like the DVB preset.
     "nr-bg1-layered": SimConfig(
         code=CodeConfig(family="5gnr", base_graph=1, Z=384, rate="1/2"),
         channel=ChannelConfig(modulation="bpsk", ebn0_db=2.0),
@@ -242,10 +240,9 @@ PRESETS = {
                               max_iter=20, early_term=False),
         run=RunConfig(batch=256),
     ),
-    # BASELINE.json:10 — DVB-S2 long codes, HBM-resident messages. Layered
-    # with fixed iterations: the HBM-streaming kernel's domain (layered
-    # needs half the iterations of flooding for equal BER, and per-iteration
-    # syndrome passes are not worth their bandwidth in this regime).
+    # BASELINE.json:10 — DVB-S2 long codes, messages resident in device
+    # memory. Layered (half the iterations of flooding for equal BER) with
+    # fixed iterations.
     "dvbs2-64800-r12": SimConfig(
         code=CodeConfig(family="dvbs2", n=64800, rate="1/2"),
         channel=ChannelConfig(modulation="bpsk", ebn0_db=1.5),
@@ -261,7 +258,8 @@ PRESETS = {
         quant=QuantConfig(bits=8, scale=4.0, beta_lsb=2),
         decoder=DecoderConfig(algorithm="offset-min-sum", schedule="layered",
                               max_iter=20, early_term=True),
-        run=RunConfig(batch=4096, mesh_shape=(2, 4), mesh_axes=("dcn", "ici")),
+        run=RunConfig(batch=4096, mesh_shape=(2, 4),
+                      mesh_axes=("host", "device")),
     ),
 }
 
@@ -270,7 +268,7 @@ def cn_params(dec: DecoderConfig, quant: QuantConfig):
     """(beta, alpha) for the fixed-point CN magnitude transform
     mag' = max(((mag * num) >> shift) - beta, 0), where alpha is
     (num, shift) or None for the identity. Single mapping shared by every
-    decoder implementation (golden, jnp, QC, Pallas, C oracle) so the
+    decoder implementation (golden, jnp, QC, CUDA, C oracle) so the
     algorithm -> parameters choice cannot diverge between them."""
     alg = dec.algorithm
     if alg == "offset-min-sum":

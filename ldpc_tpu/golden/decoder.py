@@ -5,7 +5,7 @@ fixed-point semantics (SURVEY.md §3.4, §4.2). It plays the role the reference'
 C decoder + MATLAB float decoder played (BASELINE.json:5 'iterative
 belief-propagation decoder (min-sum / offset-min-sum) with fixed-point LLR
 quantization ... fixed-point saturation arithmetic'): every other decoder in the
-repo (jnp reference op, Pallas kernel, C oracle in csrc/) must match
+repo (jnp reference ops, CUDA kernel, C oracle in csrc/) must match
 decode_fixed EXACTLY on identical integer inputs — min-sum over integers is
 deterministic, so the contract is equality, not tolerance.
 
@@ -27,7 +27,7 @@ Pinned semantics (SURVEY.md §8, frozen here):
   * Layered iteration: for each layer in order, v2c = sat(post - c2v), new c2v,
     post += new_c2v - old_c2v (exact); hard decision + syndrome once per full
     sweep. All checks within a layer read the SAME pre-layer posterior
-    (parallel-within-layer semantics, matching the Z-parallel TPU kernel).
+    (parallel-within-layer semantics, matching the Z-parallel QC decoders).
 """
 from __future__ import annotations
 

@@ -1,4 +1,2 @@
-"""Pallas TPU kernels: VMEM-resident (minsum_pallas) and HBM-streaming
-(minsum_stream) fixed-point min-sum decoders."""
-from .minsum_pallas import make_pallas_decoder, vmem_bytes  # noqa: F401
-from .minsum_stream import make_stream_decoder  # noqa: F401
+"""Hand-written device kernels: the CUDA min-sum decoder for QC codes
+(minsum_cuda), called through jax.ffi."""

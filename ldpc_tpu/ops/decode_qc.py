@@ -1,12 +1,13 @@
-"""QC-structured jnp decoder: the Pallas kernel's math as pure XLA.
+"""QC-structured jnp decoder: the QC min-sum family as pure XLA.
 
-For QC codes the edge-gather decoder (decode_ref.py) wastes HBM bandwidth on
-large gathers; this decoder mirrors kernels/minsum_pallas.py instead —
+For QC codes the edge-gather decoder (decode_ref.py) wastes memory bandwidth
+on large gathers; this decoder works on the QC structure instead —
 posteriors as (B, nb, Z) tensors, circulant shifts as static rolls, base
 entries unrolled — so XLA lowers it to fused elementwise streams. It is the
-production path for codes whose state exceeds VMEM (DVB-S2 n=64800, NR
-Z=384; SURVEY.md §5.7's HBM-resident regime) and a fast CPU path for QC
-codes generally.
+production path for codes whose state exceeds a GPU thread block (DVB-S2
+n=64800, NR Z=384; SURVEY.md §5.7's device-memory-resident regime), for min*,
+and for QC codes off the GPU, and the reference the CUDA kernel
+(kernels/minsum_cuda.py) is compared with.
 
 Bit-exact vs golden/decoder.py on identical int8 inputs (same contract as
 the kernel; tests assert equality)."""
@@ -20,7 +21,7 @@ import numpy as np
 
 from ..codes.code import LDPCCode
 from ..config import DecoderConfig, QuantConfig
-from ..kernels.minsum_pallas import _qc_entries
+from ..codes.layout import qc_entries
 
 _I32 = jnp.int32
 
@@ -36,7 +37,8 @@ def _rot_bwd(x, s):
 
 def _cn_minsum(v2cs: List[jnp.ndarray], beta: int, alpha=None):
     """Value-exclusion min-sum over a layer's entries ((B, Z) int32 each) —
-    identical tie semantics to the golden model (see minsum_pallas).
+    identical tie semantics to the golden model (ties by value: |v| == min1
+    takes min2, so every tied entry gets min1).
     alpha = (num, shift): normalized-min-sum scaling applied to min1/min2
     before the offset — monotonic, so pre-exclusion application equals the
     golden model's post-exclusion transform."""
@@ -114,7 +116,7 @@ def make_qc_decoder(
         raise ValueError("min-star does not compose with beta/alpha")
     if schedule not in ("flooding", "layered"):
         raise ValueError(schedule)
-    qc, layers = _qc_entries(code)
+    qc, layers = qc_entries(code)
     Z, nb = qc.Z, qc.nb
     n = code.n
     entry_of, off = [], 0

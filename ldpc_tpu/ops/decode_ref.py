@@ -2,9 +2,9 @@
 
 This is the framework's portable decoder (SURVEY.md §2.1 C8 'pure-XLA jnp
 fallback'): the same fixed-point min-sum / offset-min-sum message passing as
-the golden model (golden/decoder.py — the bit-exactness oracle) and the Pallas
-kernel (kernels/ — the TPU fast path), expressed with dense padded gathers so
-XLA can vectorize it on any backend.
+the golden model (golden/decoder.py — the bit-exactness oracle) and the QC
+decoders (ops/decode_qc.py, kernels/minsum_cuda.py), expressed with dense
+padded gathers so XLA can vectorize it for any code, QC or not.
 
 Layout: messages live check-major in a flat (m*max_dc + 1) buffer per codeword;
 the last slot is a zero dump/pad slot (see codes/layout.py). The flooding
@@ -30,8 +30,8 @@ from ..config import DecoderConfig, QuantConfig
 
 # numpy scalar, NOT jnp: a module-level jnp constant materializes a device
 # array at import time, which INITIALIZES the JAX backend and latches
-# jax_platforms before any script can call jax.config.update (round-5
-# footgun: --platform cpu flags silently ran on the TPU)
+# jax_platforms before any script can call jax.config.update (--platform
+# cpu would then silently run on the accelerator)
 _BIG = np.int32(1 << 15)
 
 

@@ -2,9 +2,9 @@
 
 The reference encodes one codeword at a time with dual-diagonal
 back-substitution (BASELINE.json:5 'sparse parity-check encoding'; IEEE
-802.11-2012 Annex F). Two TPU-native realizations:
+802.11-2012 Annex F). Two batched realizations:
 
-  * small codes (802.11n sizes): one batched MXU matmul against the
+  * small codes (802.11n sizes): one batched matmul against the
     precomputed dense parity generator — parity = (info @ P^T) mod 2, bf16
     inputs with exact f32 accumulation;
   * structured QC codes of any size (802.11n, NR-like, DVB-S2-like): the
@@ -52,39 +52,6 @@ def make_encoder(code: LDPCCode) -> Callable[[jnp.ndarray], jnp.ndarray]:
     return _make_dense_encoder(code)
 
 
-def make_encoder_t(code: LDPCCode) -> Callable[[jnp.ndarray], jnp.ndarray]:
-    """Transposed dense encoder: encode_t(info[k, B]) -> codeword[n, B].
-
-    The transposed-pipeline fast path (sim/pipeline.py) keeps batch LAST
-    end-to-end so the decoder's (nb, Z, B) layout is a pure reshape; the
-    parity matmul becomes (m, k) @ (k, B) on the MXU. Same math as
-    make_encoder — H c^T = 0 property-tested for both."""
-    if _has_qc_struct(code) and code.n > _DENSE_MAX_N:
-        # Same guard as make_encoder/info_positions: never materialize the
-        # dense systematic form for large QC codes — route through the O(E)
-        # structured encoder (the transposes are trivial next to decode).
-        from ..codes.qcstruct import make_qc_encoder
-        enc = make_qc_encoder(code)
-        return lambda info_t: enc(info_t.T).T
-    from ..golden.encoder import systematic_form
-
-    P, perm = systematic_form(code)  # (m, k), (n,)
-    Pj = jnp.asarray(P.astype(np.float32), jnp.bfloat16)  # (m, k)
-    identity_perm = bool(np.all(perm == np.arange(code.n)))
-    perm_j = None if identity_perm else jnp.asarray(perm)
-
-    def encode_t(info_t: jnp.ndarray) -> jnp.ndarray:
-        x = info_t.astype(jnp.bfloat16)
-        acc = jnp.dot(Pj, x, preferred_element_type=jnp.float32)
-        parity = (acc.astype(jnp.int32) & 1).astype(jnp.uint8)
-        c = jnp.concatenate([info_t.astype(jnp.uint8), parity], axis=0)
-        if perm_j is not None:
-            c = jnp.zeros_like(c).at[perm_j, :].set(c)
-        return c
-
-    return encode_t
-
-
 def _make_dense_encoder(code: LDPCCode) -> Callable[[jnp.ndarray], jnp.ndarray]:
     from ..golden.encoder import systematic_form
 
@@ -94,6 +61,8 @@ def _make_dense_encoder(code: LDPCCode) -> Callable[[jnp.ndarray], jnp.ndarray]:
     perm_j = None if identity_perm else jnp.asarray(perm)
 
     def encode(info: jnp.ndarray) -> jnp.ndarray:
+        # Exact: 0/1 operands are exact in bf16 and every partial sum is an
+        # integer below k < 2**24, which float32 accumulation holds exactly.
         x = info.astype(jnp.bfloat16)
         acc = jnp.dot(x, PT, preferred_element_type=jnp.float32)
         parity = (acc.astype(jnp.int32) & 1).astype(jnp.uint8)

@@ -2,13 +2,14 @@
 
 The reference is a single-process sequential simulator; its outer Monte-Carlo
 loop becomes the data-parallel axis here: the codeword batch is sharded over
-every chip of a jax.sharding.Mesh, XLA inserts the psum for the error counters,
-and only O(1) scalars cross ICI/DCN per superbatch (BASELINE.json:5 'codeword
+every device of a jax.sharding.Mesh, XLA inserts the psum for the error
+counters, and only O(1) scalars cross devices per superbatch (BASELINE.json:5 'codeword
 batch ... sharded over chips', 'early-termination syndrome checks via
 all-reduce').
 
-Mesh axis convention: ("dcn", "ici") for multi-host, or a single flat
-("batch",) axis on one host. The batch dimension of every tensor is sharded
+Mesh axis convention: a single flat ("batch",) axis on one host — the cards of
+a host are joined all to all, so the mesh follows the algorithm alone — or
+("host", "device") across hosts. The batch dimension of every tensor is sharded
 over ALL mesh axes; everything else is replicated.
 """
 from __future__ import annotations
@@ -29,8 +30,8 @@ def make_mesh(
     """Build a Mesh over the available devices.
 
     shape=None uses all devices on one flat axis. For multi-host runs pass
-    shape=(n_hosts, chips_per_host) with axes=("dcn", "ici") so collectives
-    ride ICI within a host (SURVEY.md §2.4).
+    shape=(n_hosts, devices_per_host) with axes=("host", "device")
+    (SURVEY.md §2.4).
     """
     devs = np.asarray(devices if devices is not None else jax.devices())
     if shape is None:

@@ -6,12 +6,12 @@ start from qc_peg_best's pick at the same wifi-648 geometry (kb=12 cb=12
 Z=27, wifi info-column profile) and run as_optimize (codes/peg.py) —
 census-guided circulant re-placement accepting only strict exact-spectrum
 improvements. The artifact records both exact censuses + the optimization
-log; the silicon tail A/B (same config as census_ab) runs on the TPU via
+log; the device tail A/B (same config as census_ab) runs on the GPU via
 --silicon.
 
 Writes results/as_design.json.
 Usage: PYTHONPATH=. python scripts/make_as_design.py [--evals N]
-       [--silicon]  (TPU: adds measured tail FER rows for both codes)
+       [--silicon]  (GPU: adds measured tail FER rows for both codes)
 """
 import json
 import sys
@@ -30,7 +30,8 @@ def main():
     import jax
     if not silicon:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
+    from ldpc_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
 
     from ldpc_tpu.analysis.asenum import exact_absorbing_census
     from ldpc_tpu.codes.code import expand_qc
@@ -43,7 +44,7 @@ def main():
 
     if silicon:
         # reuse the CPU-stage artifact (deterministic construction) so the
-        # TPU session doesn't redo the ~10 min census hill-climb
+        # device session doesn't redo the ~10 min census hill-climb
         try:
             with open("results/as_design.json") as f:
                 doc = json.load(f)
@@ -127,7 +128,7 @@ def _run_silicon(doc, base_code, opt_code):
                                   schedule="layered", max_iter=20,
                                   early_term=True),
             run=RunConfig(batch=batch, seed=29, all_zeros=True))
-        sweep = Sweep(cfg, batch=batch, batch_tile=512, superbatches=4,
+        sweep = Sweep(cfg, batch=batch, superbatches=4,
                       code=code)
         t0 = time.time()
         res = sweep.run(ebn0, target_frame_errors=10 ** 9,

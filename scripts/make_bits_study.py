@@ -32,7 +32,8 @@ def main():
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
+    from ldpc_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     from ldpc_tpu.config import PRESETS
     from ldpc_tpu.sim.sweep import Sweep
 

@@ -25,7 +25,8 @@ def main():
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
+    from ldpc_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     from ldpc_tpu.config import PRESETS
     from ldpc_tpu.ops import channel as ch
@@ -39,7 +40,7 @@ def main():
     B = min(args.frames, 4096)
     n_batches = max(1, args.frames // B)
     enc = make_encoder(code)
-    dec, backend = select_decoder(code, cfg, "auto", 512, batch=B)
+    dec, backend = select_decoder(code, cfg, "auto", batch=B)
     info_pos = jnp.asarray(info_positions(code))
 
     def run(key, p):

@@ -2,8 +2,8 @@
 
 Computes quantized min-sum-family DE thresholds for the PRODUCTION irregular
 degree profiles (VERDICT round-2 item 7) and cross-checks the 802.11n OMS
-threshold directionally against the measured TPU waterfall artifact
-(results/cn_variants_oms_b1.json). Pure NumPy — no TPU needed.
+threshold directionally against the measured waterfall artifact
+(results/cn_variants_oms_b1.json). Pure NumPy — no accelerator needed.
 
 Usage: PYTHONPATH=. python scripts/make_de_thresholds.py [outdir]
 """
@@ -145,7 +145,7 @@ def main() -> None:
         "max_dv": 3, "max_dc": 6, "wall_s": round(time.time() - t0, 1),
     })
 
-    # Directional cross-check vs the measured waterfall (TPU artifact):
+    # Directional cross-check vs the measured waterfall artifact:
     # the asymptotic threshold must sit below the finite-length n=648
     # waterfall region (BER 1.1e-3 at 2.0 dB, 20 iters, layered OMS b=1).
     oms = next(c for c in cases if c["code"] == "wifi648_r12"

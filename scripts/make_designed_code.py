@@ -3,11 +3,11 @@
 The full design loop the reference's MATLAB layer only gestures at:
   1. scan candidate info-column degree profiles at the 802.11n n=648 r=1/2
      geometry with quantized-OMS density evolution (analysis/de.py) — pure
-     NumPy, no TPU;
+     NumPy, no accelerator;
   2. construct the best candidate AND a control with the standard table's
      own degree profile (isolating the construction/girth effect) via
      QC-PEG (codes/peg.py);
-  3. Monte-Carlo all three codes on the TPU through the standard sweep
+  3. Monte-Carlo all three codes on the GPU through the standard sweep
      (family='qcpeg' configs — same kernels, same counters).
 
 Writes results/designed_648.json (scan table + curves) and
@@ -40,7 +40,8 @@ def main():
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
+    from ldpc_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
 
     from ldpc_tpu.analysis import de
     from ldpc_tpu.codes.ieee80211n import make_code as make_wifi
@@ -131,7 +132,7 @@ def main():
     results = []
     for name, cfg in runs.items():
         t0 = time.time()
-        sw = Sweep(cfg, batch=batch, batch_tile=512, superbatches=4,
+        sw = Sweep(cfg, batch=batch, superbatches=4,
                    checkpoint_path=args.out + f".{name}.state")
         res = sw.run(ebn0, target_frame_errors=tfe, max_frames=max_frames)
         res.code_name = name

@@ -1,8 +1,8 @@
 """Error-floor study for the flagship DVB-S2 n=64800 r=1/2 code.
 
 The round-4 vectorized syndrome + batched refinement open the trapping-set
-machinery to HBM-regime graphs; the IS chain decodes through the same
-slot-streaming Pallas kernel as the production sweeps. Long codes have
+machinery to long-code graphs; the IS chain decodes through the same
+QC-XLA decoder as the production sweeps. Long codes have
 razor waterfalls (FER 0.64 -> <5e-5 between 1.0 and 1.25 dB measured), so
 plain MC sees NOTHING above the knee — exactly where mixture IS earns its
 keep.
@@ -34,7 +34,8 @@ def main():
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
+    from ldpc_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
 
     from ldpc_tpu.analysis.trapping import classify, refine_support
     from ldpc_tpu.codes.dvbs2 import make_code

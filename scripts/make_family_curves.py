@@ -1,8 +1,8 @@
-"""BER/FER curves for the wider code-family set, on the TPU chip.
+"""BER/FER curves for the wider code-family set, on the GPU.
 
 Produces results/: 802.11n n=1944 (r=1/2 and r=5/6, OMS layered — the
 'wifi-full-oms' capability), 5G-NR-like BG1, and DVB-S2-like r=1/2 via the
-HBM-streaming kernel. Run: PYTHONPATH=. python scripts/make_family_curves.py
+QC-XLA decoder. Run: PYTHONPATH=. python scripts/make_family_curves.py
 """
 import os
 import sys
@@ -10,8 +10,8 @@ import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from ldpc_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 from ldpc_tpu.config import (ChannelConfig, CodeConfig, DecoderConfig,
                              QuantConfig, RunConfig, SimConfig)
@@ -48,7 +48,7 @@ def main():
     results = []
     for name, (cfg, ebn0, batch, max_frames) in RUNS.items():
         t0 = time.time()
-        sweep = Sweep(cfg, batch=batch, batch_tile=512, superbatches=4,
+        sweep = Sweep(cfg, batch=batch, superbatches=4,
                       checkpoint_path=os.path.join(outdir, name + ".state"))
         res = sweep.run(ebn0, target_frame_errors=150, max_frames=max_frames)
         res.code_name = name

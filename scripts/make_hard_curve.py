@@ -49,7 +49,7 @@ def main():
     B = min(args.frames, 2048)
     n_batches = max(1, args.frames // B)
     enc = make_encoder(wifi)
-    soft_dec, backend = select_decoder(wifi, cfg, "auto", 512, batch=B)
+    soft_dec, backend = select_decoder(wifi, cfg, "auto", batch=B)
     info_pos = jnp.asarray(info_positions(wifi))
     hard_decs = {alg: jax.jit(make_hard_decoder(wifi, max_iter=30,
                                                 algorithm=alg))

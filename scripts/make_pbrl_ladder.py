@@ -39,7 +39,8 @@ def main():
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
+    from ldpc_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
 
     from ldpc_tpu.analysis.proto_de import proto_de_threshold_awgn
     from ldpc_tpu.config import (ChannelConfig, CodeConfig, DecoderConfig,
@@ -64,8 +65,8 @@ def main():
 
     def cfg_for(frac):
         return SimConfig(
-            # design picked by the proto-DE knob scan (/tmp round-4
-            # scan, recorded in the output JSON): ext_row_degree=4 with a
+            # design picked by the proto-DE knob scan (round-4 scan,
+            # recorded in the output JSON): ext_row_degree=4 with a
             # 2x3+3x6+4x3 core beats naive puncturing by 0.8/1.6 dB at
             # rates 0.67/0.75 (predicted), conceding 0.4 dB at 0.50.
             code=CodeConfig(family="pbrl", n=756, rate="3/7", Z=27,
@@ -89,7 +90,7 @@ def main():
         import numpy as np
         rate = code.rate
         thr_db = float(-20 * np.log10(thr * np.sqrt(2 * rate)))
-        sw = Sweep(cfg, batch=batch, batch_tile=512, superbatches=4,
+        sw = Sweep(cfg, batch=batch, superbatches=4,
                    checkpoint_path=args.out + f".{name}.state")
         res = sw.run(ebn0, target_frame_errors=tfe, max_frames=max_frames)
         res.code_name = f"pbrl {name} (n_tx={code.n_tx})"

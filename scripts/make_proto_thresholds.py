@@ -8,7 +8,7 @@ rows, with rate matching modeled per column:
     columns at channel LLR 0, shortened fillers saturated, decision error
     over the info-bit columns (no degree-1 parity floor in the metric).
 
-Pure NumPy — no TPU. Runtime: minutes (NR BG1's degree-30 columns
+Pure NumPy — no accelerator. Runtime: minutes (NR BG1's degree-30 columns
 dominate). Usage: PYTHONPATH=. python scripts/make_proto_thresholds.py
 """
 import json

@@ -1,4 +1,4 @@
-"""BER/FER waterfall for the BASELINE.json:11 QAM workload on the TPU:
+"""BER/FER waterfall for the BASELINE.json:11 QAM workload on the GPU:
 802.11n n=1944 r=3/4, 16-QAM over complex AWGN, 8-bit OMS layered, per-lane
 early termination — the full SDR chain (encode -> Gray map -> AWGN ->
 max-log demap -> quantize -> decode -> count) through the round-3
@@ -12,8 +12,8 @@ import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from ldpc_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 sys.path.insert(0, ".")
 
@@ -34,7 +34,7 @@ def main():
     name = "qam16_1944_r34_oms"
     state = os.path.join(outdir, name + ".state")
     t0 = time.time()
-    sweep = Sweep(cfg, batch=16384, batch_tile=1024, superbatches=4,
+    sweep = Sweep(cfg, batch=16384, superbatches=4,
                   checkpoint_path=state)
     res = sweep.run([4.0, 4.5, 5.0, 5.5, 6.0, 6.5],
                     target_frame_errors=200, max_frames=2_000_000)

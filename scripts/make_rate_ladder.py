@@ -2,7 +2,7 @@
 
 One decoder graph, four effective rates via nested tail puncturing
 (codes/rate_compat.py; CodeConfig.punct_frac): the incremental-redundancy
-capability of rate-compatible LDPC research. Each rung is swept on the TPU
+capability of rate-compatible LDPC research. Each rung is swept on the GPU
 through the standard pipeline (punctured positions enter the decoder with
 LLR 0; Eb/N0 calibration follows k_eff/n_tx automatically).
 
@@ -29,7 +29,8 @@ def main():
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
+    from ldpc_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
 
     from ldpc_tpu.config import (ChannelConfig, CodeConfig, DecoderConfig,
                                  QuantConfig, RunConfig, SimConfig)
@@ -63,7 +64,7 @@ def main():
             run=RunConfig(seed=1))
         code = build_code(cfg)
         t0 = time.time()
-        sw = Sweep(cfg, batch=batch, batch_tile=512, superbatches=4,
+        sw = Sweep(cfg, batch=batch, superbatches=4,
                    checkpoint_path=args.out + f".{name}.state")
         res = sw.run(ebn0, target_frame_errors=tfe, max_frames=max_frames)
         res.code_name = f"wifi648 punct {name} (n_tx={code.n_tx})"

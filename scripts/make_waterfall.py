@@ -1,4 +1,4 @@
-"""Generate the canonical BER/FER waterfall artifact set on the TPU.
+"""Generate the canonical BER/FER waterfall artifact set on the GPU.
 
 Produces results/wifi648_{minsum,oms,oms_float}.{json,csv} and a combined
 waterfall plot — the reference's headline output (BER/FER vs Eb/N0 with the
@@ -18,8 +18,8 @@ from ldpc_tpu.sim.report import plot_waterfall, write_outputs
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from ldpc_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     outdir = sys.argv[1] if len(sys.argv) > 1 else "results"
     os.makedirs(outdir, exist_ok=True)
     base = PRESETS["wifi-648-r12-minsum"]
@@ -45,7 +45,7 @@ def main():
     results = []
     for name, cfg in runs.items():
         t0 = time.time()
-        sweep = Sweep(cfg, batch=16384, batch_tile=512, superbatches=8,
+        sweep = Sweep(cfg, batch=16384, superbatches=8,
                       checkpoint_path=os.path.join(outdir, name + ".state"))
         res = sweep.run(ebn0, target_frame_errors=200,
                         max_frames=2_000_000)

@@ -1,4 +1,4 @@
-"""BER/FER curves for ALL 12 IEEE 802.11n codes on the TPU chip.
+"""BER/FER curves for ALL 12 IEEE 802.11n codes on the GPU.
 
 One sweep per (n, rate) — n in {648, 1296, 1944} x rate in {1/2, 2/3, 3/4,
 5/6} — 8-bit OMS, layered, early termination, BPSK/AWGN, per-rate Eb/N0
@@ -16,8 +16,8 @@ sys.path.insert(0, ".")
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/ldpc_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from ldpc_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 from ldpc_tpu.config import (ChannelConfig, CodeConfig, DecoderConfig,
                              QuantConfig, RunConfig, SimConfig)
@@ -48,7 +48,7 @@ def main():
                                       early_term=True),
                 run=RunConfig(seed=1))
             t0 = time.time()
-            sweep = Sweep(cfg, batch=8192, batch_tile=512, superbatches=4,
+            sweep = Sweep(cfg, batch=8192, superbatches=4,
                           checkpoint_path=os.path.join(outdir,
                                                        name + ".state"))
             res = sweep.run(grid, target_frame_errors=200,

@@ -6,12 +6,12 @@ config, and reports
 
     efficiency = throughput_Nproc / (N * throughput_1proc)
 
-On real multi-host TPU this is the >=80% @ >=2 hosts measurement. On this
-single-host CPU image (no multi-chip hardware attached — SURVEY.md §7.0) it
-exercises the identical launch path with fake CPU devices; the N processes
-then SHARE the same physical cores, so the CPU number is a lower bound on
+It forces the CPU: it demonstrates the multi-process launch path
+(jax.distributed, one process per host) with fake CPU devices, and the N
+processes SHARE the same physical cores, so its number is a lower bound on
 what separate hosts would achieve (the only cross-process traffic is the
-5-counter psum). Record results in docs/PERFORMANCE.md.
+5-counter psum). It is not a device measurement. Scaling over the cards of
+one host runs in one process: chip_smoke.py --four-cards.
 
 Usage:
   python scripts/scaling_efficiency.py            # 1 vs 2 processes, CPU

@@ -2,8 +2,8 @@
 tests/test_multihost.py). Arguments: <coordinator> <num_procs> <proc_id>.
 
 Each process owns 2 local fake CPU devices; the global mesh is
-("dcn", "ici") = (num_procs, 2). Prints the psum-reduced counters, which the
-parent compares against a single-process run of the same seed — the
+("host", "device") = (num_procs, 2). Prints the psum-reduced counters, which
+the parent compares against a single-process run of the same seed — the
 mesh-size-invariance contract (SURVEY.md §4.2 'Distributed' row (c))."""
 import os
 import sys
@@ -38,7 +38,7 @@ def main():
         run=RunConfig(batch=32, seed=11),
     )
     code = build_code(cfg)
-    mesh = make_mesh(shape=(num_procs, 2), axes=("dcn", "ici"))
+    mesh = make_mesh(shape=(num_procs, 2), axes=("host", "device"))
     rb = make_run_batch(code, cfg, mesh=mesh, decoder_backend="jnp")
     out = rb(jax.random.PRNGKey(5), np.float32(0.9))
     vals = tuple(int(np.asarray(x)) for x in out)

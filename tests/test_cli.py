@@ -123,22 +123,59 @@ def test_write_outputs_creates_directory(tmp_path):
 
 
 def test_bench_workload_configs_build():
-    """bench.py --all gates the extended workloads; their configs must
-    stay constructible (code family, modulation divisibility, batch/tile
-    compatibility are all checked at build time)."""
+    """bench.py --all measures the extended workloads; their configs must
+    stay constructible (code family, modulation divisibility are checked at
+    build time)."""
     import sys
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import bench
     from ldpc_tpu.sim import build_code
-    for name in [bench.CONFIG] + list(bench.EXTENDED):
+    assert bench.CONFIG in bench.WORKLOADS
+    for name, (batch, _, _) in bench.WORKLOADS.items():
         cfg = bench._cfg(name)
         code = build_code(cfg)
-        batch = (16384 if name == bench.CONFIG else bench.EXTENDED[name][0])
         assert batch % 128 == 0 and code.n > 0
         if cfg.channel.modulation != "bpsk":
             from ldpc_tpu.ops.channel import BITS_PER_SYM
             assert code.n % BITS_PER_SYM[cfg.channel.modulation] == 0
+
+
+def test_bench_refuses_without_gpu():
+    """On a machine without a GPU, bench.py exits non-zero with a message
+    and measures nothing."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, os.path.join(root, "bench.py")],
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu",
+                                  PYTHONPATH=root))
+    assert res.returncode != 0
+    assert "no GPU" in res.stderr and res.stdout == ""
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_location(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing is set in code;
+    otherwise the fixed <repo>/.jax_cache."""
+    import jax
+    from ldpc_tpu.utils import cache
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            assert cache.enable_compile_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            root = os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__)))
+            want = os.path.join(root, ".jax_cache")
+            assert cache.enable_compile_cache() == want
+            assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
 def test_cli_auto_two_phase_implies_early_term():

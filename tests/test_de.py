@@ -5,7 +5,7 @@ item 7: thresholds must apply to the actual 802.11n/NR/DVB-S2 profiles).
 Pins: the classic Gallager-A (3,6) BSC threshold p* ~= 0.0394 (Gallager
 1963 / Bazzi et al. exact value 0.0394636...); regular == one-hot-spectrum
 equivalence; trajectory monotonicity across the threshold; and the 802.11n
-OMS AWGN threshold's DIRECTION against the measured TPU waterfall artifact
+OMS AWGN threshold's DIRECTION against the measured waterfall artifact
 (asymptotic threshold must sit below the finite-length n=648 waterfall,
 above the Shannon limit).
 """

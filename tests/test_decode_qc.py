@@ -1,6 +1,7 @@
 """QC-structured jnp decoder (ops/decode_qc.py): bit-exact vs the C oracle
-(itself golden-exact) — the HBM-resident decode path for codes whose state
-exceeds VMEM (SURVEY.md §5.7)."""
+(itself golden-exact) — the decode path for codes whose state exceeds a GPU
+thread block (SURVEY.md §5.7) and the reference for the CUDA kernel — and
+the dispatch that chooses between the two."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,491 +42,148 @@ def test_qc_decoder_bitexact(code_fn, kw, rng):
 
 
 def test_auto_selection_large_code_uses_qc_jnp(monkeypatch):
-    """DVB-S2 state exceeds VMEM -> auto backend resolves to qc-jnp even on
-    a 'TPU' platform."""
+    """DVB-S2 state exceeds a thread block -> auto backend resolves to qc-jnp
+    even on a GPU; the small canonical code takes the CUDA kernel."""
     import ldpc_tpu.sim.pipeline as pl
     from ldpc_tpu.config import PRESETS
     from ldpc_tpu.sim import build_code
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     import dataclasses
     cfg = PRESETS["dvbs2-64800-r12"]
-    # flooding/early-term variants are outside the streaming kernel's domain
     cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
         cfg.decoder, schedule="flooding", early_term=True))
     code = build_code(cfg)
     _, backend = pl.select_decoder(code, cfg)
     assert backend == "qc-jnp"
-    # and the small canonical code stays on the kernel
     cfg2 = PRESETS["wifi-648-r12-minsum"]
     _, backend2 = pl.select_decoder(build_code(cfg2), cfg2)
-    assert backend2 == "pallas"
+    assert backend2 == "qc-cuda"
 
 
-class TestStreamKernel:
-    """HBM-streaming kernel (kernels/minsum_stream.py) in interpret mode —
-    compiled-mode bit-exactness is asserted on hardware (docs/PERFORMANCE)."""
+class TestAutoDispatch:
+    """Where auto sends each large-code regime: QC codes too large for a
+    thread block go to decode_qc on any platform, and off the GPU every QC
+    code does."""
 
-    def test_stream_bitexact_interpret(self, rng):
-        from ldpc_tpu.codes.toy import toy_qc
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        code = toy_qc(8)
-        B = 128
-        chan = _llrs(rng, B, code.n)
-        dec = make_stream_decoder(code, max_iter=5, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  resident=False)
-        h, it, cv = map(np.asarray, dec(chan))
-        ho, ito, cvo = oracle.decode_batch(chan, code, max_iter=5, beta=2,
-                                           qmax=127, schedule="layered",
-                                           early_term=False)
-        np.testing.assert_array_equal(h, ho)
-        np.testing.assert_array_equal(cv, cvo)
-
-    @pytest.mark.slow
-    def test_unaligned_z_dynamic_rejected_static_works(self, rng):
-        """Round 2: the static-unrolled kernel (compile-time shifts/indices)
-        lifts the Z % 8 == 0 restriction; only the dynamic fallback keeps
-        it. Z=27 (802.11n) must decode bit-exactly via the static path."""
-        from ldpc_tpu.codes.ieee80211n import make_code
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        from ldpc_tpu.ops.decode_qc import make_qc_decoder
-        with pytest.raises(ValueError, match="sublane-aligned"):
-            make_stream_decoder(make_code(648, "1/2"), static_unroll=False)
-        code = make_code(648, "1/2")  # Z=27, mb=12 (even)
-        chan = _llrs(rng, 128, code.n)
-        dec = make_stream_decoder(code, max_iter=5, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  resident=False)
-        ref = make_qc_decoder(code, max_iter=5, beta=2, qmax=127,
-                              schedule="layered", early_term=False)
-        h, _, cv = map(np.asarray, dec(jnp.asarray(chan)))
-        ho, _, cvo = map(np.asarray, ref(jnp.asarray(chan)))
-        np.testing.assert_array_equal(h, ho)
-        np.testing.assert_array_equal(cv, cvo)
-
-    def test_auto_dispatch_dvbs2_stream(self, monkeypatch):
-        import jax
+    def test_auto_dispatch_dvbs2_fixed_iterations(self, monkeypatch):
         import ldpc_tpu.sim.pipeline as pl_mod
         from ldpc_tpu.config import PRESETS
         from ldpc_tpu.sim import build_code
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
         cfg = PRESETS["dvbs2-64800-r12"]
         _, backend = pl_mod.select_decoder(build_code(cfg), cfg)
-        assert backend == "pallas-stream"
+        assert backend == "qc-jnp"
 
-    def test_et_admission_gate(self, monkeypatch):
-        """ET + layered dispatch: n=16200 fits the hardware-verified VMEM
-        window and gets the resident-ET stream kernel; n=64800's
-        resident-ET footprint exceeds it (69 MiB Mosaic demand faulted the
-        chip — docs/PERFORMANCE.md) and takes the round-3 SLOT-STREAMING ET
-        kernel instead (only the int8 hard-bit state is VMEM-resident)."""
+    def test_et_dispatch_by_state_size(self, monkeypatch):
         import dataclasses
-        import jax
         import ldpc_tpu.sim.pipeline as pl_mod
         from ldpc_tpu.config import PRESETS
         from ldpc_tpu.sim import build_code
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
         cfg = PRESETS["dvbs2-64800-r12"]
         cfg = dataclasses.replace(
             cfg, decoder=dataclasses.replace(cfg.decoder, early_term=True))
-        dec, backend = pl_mod.select_decoder(build_code(cfg), cfg)
-        assert backend == "pallas-stream" and dec.variant == "stream-et"
-        cfg16 = dataclasses.replace(
-            cfg, code=dataclasses.replace(cfg.code, n=16200))
-        dec, backend = pl_mod.select_decoder(build_code(cfg16), cfg16)
-        assert backend == "pallas-stream" and dec.variant == "resident-et"
+        for n in (64800, 16200):
+            c = dataclasses.replace(
+                cfg, code=dataclasses.replace(cfg.code, n=n))
+            _, backend = pl_mod.select_decoder(build_code(c), c)
+            assert backend == "qc-jnp", n
+        qam = PRESETS["multihost-qam-chain"]  # n=1944 layered OMS ET
+        dec, backend = pl_mod.select_decoder(build_code(qam), qam)
+        assert backend == "qc-cuda" and dec.batch_tile == 8
+
+    def test_cpu_auto_is_qc_jnp(self):
+        import ldpc_tpu.sim.pipeline as pl_mod
+        from ldpc_tpu.config import PRESETS
+        from ldpc_tpu.sim import build_code
+        cfg = PRESETS["wifi-648-r12-minsum"]
+        _, backend = pl_mod.select_decoder(build_code(cfg), cfg)
+        assert backend == "qc-jnp"
+        with pytest.raises(ValueError, match="only on a GPU"):
+            pl_mod.select_decoder(build_code(cfg), cfg, "qc-cuda")
 
 
-@pytest.mark.slow
-class TestStreamKernelPipelined:
-    """Round-2 pipelined stream kernel: the conflict-aware forward table
-    must preserve bit-exactness on codes where consecutive layers genuinely
-    share posterior columns (NR BG2: dual-diagonal core + extension rows
-    re-reading systematic columns -> dense cross-layer conflicts)."""
-
-    def test_nr_bg2_conflicts_bitexact(self, rng):
-        from ldpc_tpu.codes.nr_bg import make_code as make_nr
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        from ldpc_tpu.ops.decode_qc import make_qc_decoder
-        code = make_nr(base_graph=2, Z=16)
-        import numpy as np_
-        # sanity: the forward table is actually exercised
-        from ldpc_tpu.codes.layout import compile_qc_layout
-        qc = compile_qc_layout(code)
-        shared = 0
-        for l in range(qc.mb):
-            prev = set(qc.layer_cols[(l - 1) % qc.mb][
-                qc.layer_mask[(l - 1) % qc.mb]])
-            shared += sum(1 for j in qc.layer_cols[l][qc.layer_mask[l]]
-                          if j in prev)
-        assert shared > 0, "test code has no cross-layer conflicts"
-        B = 256  # two tiles of 128 — exercises the grid dimension too
-        chan = _llrs(rng, B, code.n)
-        dec = make_stream_decoder(code, max_iter=6, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  resident=False)
-        ref = make_qc_decoder(code, max_iter=6, beta=2, qmax=127,
-                              schedule="layered", early_term=False)
-        h, it, cv = map(np.asarray, dec(chan))
-        ho, ito, cvo = map(np.asarray, ref(chan))
-        np.testing.assert_array_equal(h, ho)
-        np.testing.assert_array_equal(cv, cvo)
-
-
-@pytest.mark.slow
-def test_stream_static_equals_dynamic(rng):
-    """Static-unrolled and dynamic stream kernels must agree bit-for-bit
-    where both apply (even mb, Z % 8 == 0)."""
-    from ldpc_tpu.codes.nr_bg import make_code as make_nr
-    from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-    code = make_nr(base_graph=2, Z=16)
-    chan = _llrs(rng, 128, code.n)
-    ds = make_stream_decoder(code, max_iter=6, beta=2, qmax=127,
-                             batch_tile=128, interpret=True,
-                             static_unroll=True, resident=False)
-    dd = make_stream_decoder(code, max_iter=6, beta=2, qmax=127,
-                             batch_tile=128, interpret=True,
-                             static_unroll=False)
-    h1, i1, c1 = map(np.asarray, ds(jnp.asarray(chan)))
-    h2, i2, c2 = map(np.asarray, dd(jnp.asarray(chan)))
-    np.testing.assert_array_equal(h1, h2)
-    np.testing.assert_array_equal(c1, c2)
-
-
-@pytest.mark.slow
-def test_stream_posterior_width_equivalence(rng):
-    """int16 posterior storage (round 2: halves the dominant HBM stream)
-    must be bit-identical to int32 — the bound |post| <= (dv+1)*qmax makes
-    the narrowing lossless; compute is int32 either way."""
-    from ldpc_tpu.codes.ieee80211n import make_code
-    from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-    code = make_code(648, "1/2")
-    chan = _llrs(rng, 128, code.n)
-    outs = []
-    for i16 in (True, False):
-        dec = make_stream_decoder(code, max_iter=6, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  posterior_i16=i16, resident=False)
-        outs.append(tuple(map(np.asarray, dec(jnp.asarray(chan)))))
-    np.testing.assert_array_equal(outs[0][0], outs[1][0])
-    np.testing.assert_array_equal(outs[0][2], outs[1][2])
-
-
-@pytest.mark.slow
-class TestStreamKernelResident:
-    """Round-2 posterior-resident stream kernel (kernel_resident): whole-
-    tile posteriors live in VMEM, only c2v streams (one contiguous DMA per
-    layer per direction). Must be bit-identical to the slot-streaming
-    kernel and the QC reference everywhere it applies."""
-
-    def test_resident_equals_streaming_nr(self, rng):
-        from ldpc_tpu.codes.nr_bg import make_code as make_nr
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        code = make_nr(base_graph=2, Z=16)
-        B = 256  # two tiles — exercises the per-tile bulk DMA indexing
-        chan = _llrs(rng, B, code.n)
-        dr = make_stream_decoder(code, max_iter=6, beta=2, qmax=127,
-                                 batch_tile=128, interpret=True,
-                                 resident=True)
-        ds = make_stream_decoder(code, max_iter=6, beta=2, qmax=127,
-                                 batch_tile=128, interpret=True,
-                                 resident=False)
-        hr, _, cvr = map(np.asarray, dr(chan))
-        hs, _, cvs = map(np.asarray, ds(chan))
-        np.testing.assert_array_equal(hr, hs)
-        np.testing.assert_array_equal(cvr, cvs)
-
-    def test_resident_unaligned_z_bitexact(self, rng):
-        """Z=27: resident mode falls back to int32 storage everywhere and
-        must still match the QC reference."""
-        from ldpc_tpu.codes.ieee80211n import make_code
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        from ldpc_tpu.ops.decode_qc import make_qc_decoder
-        code = make_code(648, "1/2")
-        chan = _llrs(rng, 128, code.n)
-        dec = make_stream_decoder(code, max_iter=5, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  resident=True)
-        ref = make_qc_decoder(code, max_iter=5, beta=2, qmax=127,
-                              schedule="layered", early_term=False)
-        h, _, cv = map(np.asarray, dec(jnp.asarray(chan)))
-        ho, _, cvo = map(np.asarray, ref(jnp.asarray(chan)))
-        np.testing.assert_array_equal(h, ho)
-        np.testing.assert_array_equal(cv, cvo)
-
-    def test_resident_auto_gate(self):
-        """Auto mode keeps residency for codes whose posteriors fit the
-        raisable scoped-VMEM cap and falls back above it."""
-        from ldpc_tpu.codes.nr_bg import make_code as make_nr
-        from ldpc_tpu.kernels import minsum_stream as ms
-        code = make_nr(base_graph=2, Z=16)
-        # tiny code: auto must pick resident (same object path as explicit)
-        dec_auto = ms.make_stream_decoder(code, max_iter=2, batch_tile=128)
-        assert dec_auto is not None
-        # a batch tile so large the posteriors cannot fit forces fallback;
-        # explicit resident=True on the dynamic path must raise
-        with pytest.raises(ValueError, match="resident"):
-            ms.make_stream_decoder(code, max_iter=2, batch_tile=128,
-                                   static_unroll=False, resident=True)
-
-
-@pytest.mark.slow
-class TestStreamKernelET:
-    """Round-2 early-terminating resident stream kernel (kernel_resident_et):
-    per-iteration syndrome over the VMEM-resident posteriors, per-lane hard-
-    bit latch, whole-tile skip once all lanes converge. Must match the QC
-    layered early_term reference EXACTLY — hard bits, per-lane iteration
-    counts, and convergence flags."""
-
-    @staticmethod
-    def _noisy_llrs(rng, B, n, mu, sd):
-        # noisy all-zero codeword: lanes converge at varied iterations
-        x = rng.normal(mu, sd, size=(B, n))
-        return np.clip(np.round(x), -127, 127).astype(np.int8)
-
-    def test_et_bitexact_even_mb(self, rng):
-        from ldpc_tpu.codes.ieee80211n import make_code
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        code = make_code(648, "1/2")  # mb=12 even -> 1 iteration per body
-        chan = self._noisy_llrs(rng, 128, code.n, 18, 16)
-        dec = make_stream_decoder(code, max_iter=8, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  early_term=True)
-        assert dec.variant == "resident-et"
-        ref = make_qc_decoder(code, max_iter=8, beta=2, qmax=127,
-                              schedule="layered", early_term=True)
-        h, it, cv = map(np.asarray, dec(jnp.asarray(chan)))
-        ho, ito, cvo = map(np.asarray, ref(jnp.asarray(chan)))
-        assert 0.05 < cvo.mean() < 1.0 and len(np.unique(ito)) >= 3, \
-            "test must exercise varied per-lane convergence"
-        np.testing.assert_array_equal(h, ho)
-        np.testing.assert_array_equal(it, ito)
-        np.testing.assert_array_equal(cv, cvo)
-
-    def test_et_bitexact_odd_mb_two_iter_body(self, rng):
-        """Odd mb unrolls two decoding iterations per loop body: the ET
-        syndrome/latch must run after EACH half, not once per body. Uses the
-        small odd-mb toy (mb=5) so interpret mode stays fast; the real
-        DVB-S2 n=16200 (mb=25) ET path is verified bit-exact vs the C
-        oracle on hardware (scripts/diag_stream_et.py)."""
-        from ldpc_tpu.codes.toy import toy_qc_odd
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        code = toy_qc_odd(16)
-        chan = self._noisy_llrs(rng, 128, code.n, 20, 14)
-        dec = make_stream_decoder(code, max_iter=4, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  early_term=True)
-        assert dec.variant == "resident-et"
-        ref = make_qc_decoder(code, max_iter=4, beta=2, qmax=127,
-                              schedule="layered", early_term=True)
-        h, it, cv = map(np.asarray, dec(jnp.asarray(chan)))
-        ho, ito, cvo = map(np.asarray, ref(jnp.asarray(chan)))
-        assert len(np.unique(ito)) >= 2, "need odd/even iteration exits"
-        np.testing.assert_array_equal(h, ho)
-        np.testing.assert_array_equal(it, ito)
-        np.testing.assert_array_equal(cv, cvo)
-
-
-@pytest.mark.slow
-class TestStreamKernelSlotET:
-    """Round-3 SLOT-STREAMING early-termination kernel (kernel_stream_et):
-    no posterior residency — a single VMEM int8 hard-bit buffer doubles as
-    per-lane latch and syndrome state (blended under the done mask at each
-    layer's emit), the per-iteration syndrome is a pure-VMEM pass, and
-    whole bodies skip once every lane converges. This is the n=64800
-    DVB-S2 regime where resident-ET's footprint faults the chip. Must
-    match the QC layered early_term reference EXACTLY."""
-
-    @staticmethod
-    def _noisy_llrs(rng, B, n, mu, sd):
-        x = rng.normal(mu, sd, size=(B, n))
-        return np.clip(np.round(x), -127, 127).astype(np.int8)
-
-    def test_slot_et_bitexact_even_mb(self, rng):
-        from ldpc_tpu.codes.ieee80211n import make_code
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        code = make_code(648, "1/2")  # mb=12 even; Z=27 -> int32 storage
-        chan = self._noisy_llrs(rng, 256, code.n, 18, 16)  # 2 tiles
-        dec = make_stream_decoder(code, max_iter=8, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  early_term=True, resident=False)
-        assert dec.variant == "stream-et"
-        ref = make_qc_decoder(code, max_iter=8, beta=2, qmax=127,
-                              schedule="layered", early_term=True)
-        h, it, cv = map(np.asarray, dec(jnp.asarray(chan)))
-        ho, ito, cvo = map(np.asarray, ref(jnp.asarray(chan)))
-        assert 0.05 < cvo.mean() < 1.0 and len(np.unique(ito)) >= 3, \
-            "test must exercise varied per-lane convergence"
-        np.testing.assert_array_equal(h, ho)
-        np.testing.assert_array_equal(it, ito)
-        np.testing.assert_array_equal(cv, cvo)
-
-    def test_slot_et_bitexact_odd_mb(self, rng):
-        """Odd mb (two decoding iterations per body, like DVB-S2 n=16200):
-        syndrome/blend must run after EACH half and the DMA accounting stays
-        body-granular."""
-        from ldpc_tpu.codes.toy import toy_qc_odd
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        code = toy_qc_odd(16)
-        chan = self._noisy_llrs(rng, 128, code.n, 20, 14)
-        dec = make_stream_decoder(code, max_iter=4, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  early_term=True, resident=False)
-        assert dec.variant == "stream-et"
-        ref = make_qc_decoder(code, max_iter=4, beta=2, qmax=127,
-                              schedule="layered", early_term=True)
-        h, it, cv = map(np.asarray, dec(jnp.asarray(chan)))
-        ho, ito, cvo = map(np.asarray, ref(jnp.asarray(chan)))
-        assert len(np.unique(ito)) >= 2
-        np.testing.assert_array_equal(h, ho)
-        np.testing.assert_array_equal(it, ito)
-        np.testing.assert_array_equal(cv, cvo)
-
-    def test_slot_et_conflict_forwarding(self, rng):
-        """NR BG2 (dense cross-layer posterior conflicts): the forward
-        table interacts with the hl blend — every forwarded block's update
-        must still land in hl exactly once per layer."""
-        from ldpc_tpu.codes.nr_bg import make_code as make_nr
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        code = make_nr(base_graph=2, Z=16)
-        chan = self._noisy_llrs(rng, 128, code.n, 14, 18)
-        dec = make_stream_decoder(code, max_iter=6, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  early_term=True, resident=False)
-        assert dec.variant == "stream-et"
-        ref = make_qc_decoder(code, max_iter=6, beta=2, qmax=127,
-                              schedule="layered", early_term=True)
-        h, it, cv = map(np.asarray, dec(jnp.asarray(chan)))
-        ho, ito, cvo = map(np.asarray, ref(jnp.asarray(chan)))
-        np.testing.assert_array_equal(h, ho)
-        np.testing.assert_array_equal(it, ito)
-        np.testing.assert_array_equal(cv, cvo)
-
-    def test_slot_et_zero_iteration_tile(self):
-        """A tile whose every lane is already a codeword must exit with 0
-        iterations, channel-sign hard bits, and clean DMA accounting (the
-        n_act0 == 0 epilogue branch)."""
-        from ldpc_tpu.codes.toy import toy_qc_odd
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        code = toy_qc_odd(16)
-        chan = np.full((128, code.n), 60, np.int8)
-        dec = make_stream_decoder(code, max_iter=4, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True,
-                                  early_term=True, resident=False)
-        h, it, cv = map(np.asarray, dec(jnp.asarray(chan)))
-        assert not h.any() and (it == 0).all() and cv.all()
-
-
-@pytest.mark.slow
-class TestStreamKernelOddMb:
-    """Odd-mb codes (DVB-S2 n=16200 r=1/2: Z=360, mb=25) take the static/
-    resident kernels by unrolling two decoding iterations per fori_loop
-    body (slot parity must alternate per global layer). Uses a small odd-mb
-    toy so interpret mode stays fast; the real n=16200 path is exercised on
-    hardware (scripts/diag_oddmb.py, scripts/diag_stream_et.py)."""
-
-    @staticmethod
-    def _odd_code():
-        # Small odd-mb toy (mb=5, Z=16): exercises the same slot-parity /
-        # two-iterations-per-body machinery as DVB-S2 n=16200 (mb=25) at a
-        # fraction of the interpret-mode cost; the real n=16200 path is
-        # verified bit-exact vs the C oracle on hardware
-        # (scripts/diag_oddmb.py, scripts/diag_stream_et.py).
-        from ldpc_tpu.codes.toy import toy_qc_odd
-        return toy_qc_odd(16)
-
-    def test_odd_mb_static_and_resident_bitexact(self, rng):
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        from ldpc_tpu.ops.decode_qc import make_qc_decoder
-        code = self._odd_code()
-        chan = _llrs(rng, 128, code.n)
-        ref = make_qc_decoder(code, max_iter=4, beta=2, qmax=127,
-                              schedule="layered", early_term=False)
-        ho, _, cvo = map(np.asarray, ref(jnp.asarray(chan)))
-        for kwargs in (dict(resident=False), dict(resident=True)):
-            dec = make_stream_decoder(code, max_iter=4, beta=2, qmax=127,
-                                      batch_tile=128, interpret=True,
-                                      **kwargs)
-            assert dec.variant == ("resident" if kwargs["resident"]
-                                   else "static")
-            h, _, cv = map(np.asarray, dec(jnp.asarray(chan)))
-            np.testing.assert_array_equal(h, ho)
-            np.testing.assert_array_equal(cv, cvo)
-
-    def test_odd_mb_odd_max_iter_falls_back_dynamic(self):
-        from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-        code = self._odd_code()
-        dec = make_stream_decoder(code, max_iter=5, beta=2, qmax=127,
-                                  batch_tile=128, interpret=True)
-        assert dec.variant == "dynamic"
+@pytest.mark.parametrize("kw", [
+    dict(schedule="layered", beta=2, early_term=True, max_iter=4),
+    dict(schedule="layered", beta=2, early_term=False, max_iter=5),
+])
+def test_odd_mb_bitexact(kw, rng):
+    """Odd base-row counts (DVB-S2 n=16200 has mb=25) through decode_qc:
+    a small odd-mb toy keeps the oracle comparison fast."""
+    from ldpc_tpu.codes.toy import toy_qc_odd
+    code = toy_qc_odd(16)
+    x = rng.normal(20, 14, size=(64, code.n))
+    chan = np.clip(np.round(x), -127, 127).astype(np.int8)
+    dec = jax.jit(make_qc_decoder(code, qmax=127, **kw))
+    h, it, cv = map(np.asarray, dec(chan))
+    ho, ito, cvo = oracle.decode_batch(chan, code, qmax=127, **kw)
+    np.testing.assert_array_equal(h, ho)
+    np.testing.assert_array_equal(it, ito)
+    np.testing.assert_array_equal(cv, cvo)
 
 
 def test_degree1_base_row_rejected():
     """A degree-1 base row would leave min2 at the 1<<14 sentinel and emit
-    c2v = +-(1<<14 - beta) truncated through int8 — both kernels refuse it
-    up front instead of silently mis-decoding (advisor finding, round 1)."""
+    c2v = +-(1<<14 - beta) truncated through int8 — both QC decoders refuse
+    it up front instead of silently mis-decoding."""
     from ldpc_tpu.codes.code import expand_qc
-    from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-    from ldpc_tpu.kernels.minsum_pallas import make_pallas_decoder
+    from ldpc_tpu.config import DecoderConfig, QuantConfig
+    from ldpc_tpu.kernels import minsum_cuda
 
     base = np.array([[0, 1, -1, 0], [-1, -1, 2, -1]], np.int64)  # row 1: deg 1
     code = expand_qc(base, 8, name="deg1_toy", standard_exact=False)
     with pytest.raises(ValueError, match="degree-1"):
-        make_stream_decoder(code, max_iter=4, batch_tile=128, interpret=True)
-    with pytest.raises(AssertionError, match="degree-1"):
-        make_pallas_decoder(code, max_iter=4, interpret=True)
+        make_qc_decoder(code, max_iter=4)
+    with pytest.raises(ValueError, match="degree-1"):
+        minsum_cuda.make_decoder(code, DecoderConfig(max_iter=4),
+                                 QuantConfig())
 
 
 def test_backend_label_roundtrip_idempotent(monkeypatch):
     """Sweep resolves the backend once and feeds the emitted LABEL back into
-    make_run_batch; select_decoder must accept its own labels (round-2
-    review finding: 'pallas-stream' fell through to the dense jnp decoder,
-    silently bypassing the streaming kernel for every CLI DVB-S2/NR
-    sweep)."""
+    make_run_batch; select_decoder must accept its own labels (a label that
+    fell through to the dense jnp decoder once silently bypassed the fast
+    path for every CLI sweep)."""
     import dataclasses
     import ldpc_tpu.sim.pipeline as pl
     from ldpc_tpu.config import PRESETS
     from ldpc_tpu.sim import build_code
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     cfg = PRESETS["dvbs2-64800-r12"]
     code = build_code(cfg)
-    _, label = pl.select_decoder(code, cfg, "auto", interpret=True)
-    assert label == "pallas-stream"
-    _, label2 = pl.select_decoder(code, cfg, label, interpret=True)
+    _, label = pl.select_decoder(code, cfg, "auto")
+    assert label == "qc-jnp"
+    _, label2 = pl.select_decoder(code, cfg, label)
     assert label2 == label
     # two-phase labels strip their suffix and re-derive the wrapper
     cfg2 = PRESETS["wifi-648-r12-minsum"]
     cfg2 = dataclasses.replace(cfg2, decoder=dataclasses.replace(
         cfg2.decoder, early_term=True, phase1_iters=4))
     code2 = build_code(cfg2)
-    _, lab = pl.select_decoder(code2, cfg2, "auto", batch=1024,
-                               interpret=True)
-    assert lab == "pallas-2phase"
-    _, lab2 = pl.select_decoder(code2, cfg2, lab, batch=1024,
-                                interpret=True)
+    _, lab = pl.select_decoder(code2, cfg2, "auto", batch=1024)
+    assert lab == "qc-cuda-2phase"
+    _, lab2 = pl.select_decoder(code2, cfg2, lab, batch=1024)
     assert lab2 == lab
+    with pytest.raises(ValueError, match="unknown decoder backend"):
+        pl.select_decoder(code2, cfg2, "pallas")
 
 
 def test_two_phase_capacity_respects_stream_tile(monkeypatch):
-    """Two-phase capacity must round to the STREAM decoder's 128-lane tile
-    (decode asserts B % batch_tile == 0) — round-2 review finding: the
-    granularity was only recorded on the VMEM-kernel branch, so phase 2
-    crashed at trace time for HBM-regime codes."""
+    """Two-phase capacity must round up to the decoder's codeword tile — a
+    partial tile would decode padding lanes. The CUDA kernel's tile is 16
+    on 802.11n n=648."""
     import dataclasses
     import ldpc_tpu.sim.pipeline as pl
     from ldpc_tpu.config import PRESETS
     from ldpc_tpu.sim import build_code
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    cfg = PRESETS["dvbs2-64800-r12"]
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    cfg = PRESETS["wifi-648-r12-minsum"]
     cfg = dataclasses.replace(
-        cfg,
-        code=dataclasses.replace(cfg.code, n=16200),
-        decoder=dataclasses.replace(
+        cfg, decoder=dataclasses.replace(
             cfg.decoder, schedule="layered", early_term=True,
             phase1_iters=4, phase2_frac=0.1))
     code = build_code(cfg)
-    dec, label = pl.select_decoder(code, cfg, "auto", batch=2048,
-                                   interpret=True)
-    assert label == "pallas-stream-2phase"
-    # 0.1 * 2048 = 204.8 -> must round UP to a multiple of 128
-    assert dec.capacity % 128 == 0 and dec.capacity >= 205
+    dec, label = pl.select_decoder(code, cfg, "auto", batch=2048)
+    assert label == "qc-cuda-2phase" and dec.batch_tile == 16
+    # 0.1 * 2048 = 204.8 -> must round UP to a multiple of 16
+    assert dec.capacity % 16 == 0 and dec.capacity >= 205

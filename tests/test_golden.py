@@ -124,7 +124,7 @@ class TestGoldenDecoder:
 
     def test_posterior_bound_no_overflow(self, rng):
         """Posterior magnitude bounded by qmax*(dv+1) < 2**15 — certifies the
-        int16 accumulator width used by the TPU kernel (BASELINE.json:5
+        int16 posterior width used by the CUDA kernel (BASELINE.json:5
         'verified overflow behavior')."""
         code = toy_qc(4)
         max_dv = max(len(a) for a in code.vn_adj())

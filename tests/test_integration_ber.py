@@ -62,7 +62,7 @@ def test_waterfall_slope():
 class TestQuantizationBound:
     """BASELINE.md row 3 made concrete: the 8-bit fixed-point OMS waterfall
     must sit within 0.2 dB of the float OMS waterfall at BER 1e-4. Evaluated
-    on the TPU-generated artifacts in results/ (wifi648, 2M frames at the
+    on the artifacts in results/ (wifi648, 2M frames at the
     deep points; both curves share the sweep methodology and seed)."""
 
     def _rows(self, name):

@@ -1,17 +1,28 @@
-"""Pallas kernel bit-exactness tests (SURVEY.md §4.2 'Unit: decoder kernel').
+"""Decoder bit-exactness and the CUDA kernel's wrapper (SURVEY.md §4.2 'Unit:
+decoder kernel').
 
-The Pallas decoder must equal the NumPy golden model EXACTLY on identical int8
-inputs — min-sum over integers is deterministic, so the contract is equality,
-not tolerance. Interpreter mode (interpret=True) is the sanitizer: the kernel
-runs with pure NumPy semantics on CPU (SURVEY.md §5.2).
+Every decoder must equal the NumPy golden model EXACTLY on identical int8
+inputs — min-sum over integers is deterministic, so the contract is
+equality, not tolerance.
+
+The CUDA kernel (csrc/minsum_qc.cu) has no CPU mode. What the CPU checks
+here is everything around it: the entry table it walks, a NumPy
+transcription of its algorithm over that table (int16 posteriors, int8
+messages, two-pass check update, flooding as old totals plus message
+deltas), the attributes and padding the wrapper hands it, and the tile
+choice. The kernel itself is compared with decode_qc and golden on the card
+(tests/test_cuda_kernel.py, chip_smoke.py).
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from ldpc_tpu.codes.ieee80211n import make_code
 from ldpc_tpu.codes.toy import toy_qc
 from ldpc_tpu.golden.decoder import decode_fixed
-from ldpc_tpu.kernels.minsum_pallas import make_pallas_decoder
+from ldpc_tpu.kernels import minsum_cuda
+from ldpc_tpu.ops.decode_qc import make_qc_decoder
 
 
 def _random_llrs(rng, B, n, qmax=127):
@@ -32,6 +43,74 @@ def _golden_batch(chan, code, **kw):
     return np.stack(hards), np.array(iters), np.array(convs)
 
 
+def emulate_kernel(chan, table, Z, mb, max_iter, qmax, beta, alpha,
+                   flooding, early_term):
+    """NumPy transcription of csrc/minsum_qc.cu over the wrapper's table:
+    state laid out (variable, lane) as in shared memory, int16 posteriors,
+    int8 messages. The kernel's per-block exit is per batch here; frozen
+    lanes make the two identical."""
+    B, n = chan.shape
+    off = table[:mb + 1]
+    E = int(off[-1])
+    col_z = table[mb + 1:mb + 1 + E]
+    shift = table[mb + 1 + E:]
+    z = np.arange(Z)
+    var = [col_z[e] + (z + shift[e]) % Z for e in range(E)]  # (Z,) each
+    tot = chan.T.astype(np.int16)
+    c2v = np.zeros((E, Z, B), np.int8)
+
+    def unsat(post):
+        bad = np.zeros(B, bool)
+        for L in range(mb):
+            par = np.zeros((Z, B), bool)
+            for e in range(off[L], off[L + 1]):
+                par ^= post[var[e]] < 0
+            bad |= par.any(axis=0)
+        return bad
+
+    done = ~unsat(tot) if early_term else np.zeros(B, bool)
+    iters = np.zeros(B, np.int32)
+    for _ in range(max_iter):
+        if early_term and done.all():
+            break
+        act = ~done
+        nxt = tot.copy() if flooding else tot
+        for L in range(mb):
+            es = range(off[L], off[L + 1])
+            raw = {e: tot[var[e]].astype(np.int32) - c2v[e] for e in es}
+            x = {e: np.clip(raw[e], -qmax, qmax) for e in es}
+            min1 = np.full((Z, B), 1 << 14)
+            min2 = min1.copy()
+            sgn = np.zeros((Z, B), np.int32)
+            for e in es:
+                m = np.abs(x[e])
+                min2 = np.minimum(min2, np.maximum(min1, m))
+                min1 = np.minimum(min1, m)
+                sgn ^= x[e]
+            o1, o2 = min1, min2
+            if alpha is not None:
+                o1 = (o1 * alpha[0]) >> alpha[1]
+                o2 = (o2 * alpha[0]) >> alpha[1]
+            if beta:
+                o1 = np.maximum(o1 - beta, 0)
+                o2 = np.maximum(o2 - beta, 0)
+            for e in es:
+                mag = np.where(np.abs(x[e]) == min1, o2, o1)
+                nw = np.where((sgn ^ x[e]) < 0, -mag, mag)
+                old = c2v[e].astype(np.int32)
+                c2v[e] = np.where(act, nw, old)
+                if flooding:
+                    nxt[var[e]] += np.where(act, nw - old, 0).astype(np.int16)
+                else:
+                    tot[var[e]] = np.where(act, raw[e] + nw, tot[var[e]])
+        iters += act
+        tot = nxt
+        if early_term:
+            done |= ~unsat(tot)
+    conv = done if early_term else ~unsat(tot)
+    return (tot.T < 0).astype(np.uint8), iters, conv
+
+
 CASES = [
     dict(schedule="flooding", beta=0, early_term=False, max_iter=6),
     dict(schedule="flooding", beta=0, early_term=True, max_iter=7),
@@ -46,10 +125,32 @@ def test_toy_qc_bitexact(rng, kw):
     code = toy_qc(Z=4)
     B = 8
     chan = _random_llrs(rng, B, code.n)
-    dec = make_pallas_decoder(code, qmax=127, batch_tile=4, interpret=True,
-                              **kw)
-    hard, iters, conv = map(np.asarray, dec(chan))
+    dec = make_qc_decoder(code, qmax=127, **kw)
+    hard, iters, conv = map(np.asarray, dec(jnp.asarray(chan)))
     g_hard, g_iters, g_conv = _golden_batch(chan, code, qmax=127, **kw)
+    np.testing.assert_array_equal(hard, g_hard)
+    np.testing.assert_array_equal(iters, g_iters)
+    np.testing.assert_array_equal(conv, g_conv)
+
+
+@pytest.mark.parametrize("kw", CASES + [
+    dict(schedule="layered", beta=0, early_term=True, max_iter=6,
+         alpha=(3, 2)),
+])
+def test_kernel_transcription_bitexact(rng, kw):
+    """The kernel's algorithm over the table the wrapper builds equals
+    golden: catches a wrong table encoding, shift direction or update
+    order before the code reaches the card."""
+    code = toy_qc(Z=8)
+    chan = _random_llrs(rng, 16, code.n)
+    kw = dict(kw)
+    alpha = kw.pop("alpha", None)
+    table = minsum_cuda.layer_table(code)
+    hard, iters, conv = emulate_kernel(
+        chan, table, code.Z, code.base.shape[0], kw["max_iter"], 127,
+        kw["beta"], alpha, kw["schedule"] == "flooding", kw["early_term"])
+    g_hard, g_iters, g_conv = _golden_batch(chan, code, qmax=127,
+                                            alpha=alpha, **kw)
     np.testing.assert_array_equal(hard, g_hard)
     np.testing.assert_array_equal(iters, g_iters)
     np.testing.assert_array_equal(conv, g_conv)
@@ -60,9 +161,10 @@ def test_toy_qc_bitexact(rng, kw):
 def test_random_topology_bitexact(seed, rng):
     """Topology fuzz: randomly GENERATED small QC codes (random row
     supports, random shifts via gen_qc_code — different kb/cb/extension
-    shapes per seed) must decode bit-exactly vs golden through the Pallas
-    kernel, both schedules. Guards the layout compiler + kernel against
-    assumptions that happen to hold for the standard code shapes."""
+    shapes per seed) must decode bit-exactly vs golden through the QC
+    decoder and the kernel transcription, both schedules. Guards the layout
+    compiler against assumptions that happen to hold for the standard code
+    shapes."""
     from ldpc_tpu.codes.qcstruct import gen_qc_code
     g = np.random.default_rng(seed)
     kb = int(g.integers(3, 7))
@@ -82,17 +184,21 @@ def test_random_topology_bitexact(seed, rng):
                        require_girth6=False)
     B = 8
     chan = _random_llrs(rng, B, code.n)
+    table = minsum_cuda.layer_table(code)
     for kw in (dict(schedule="flooding", beta=2, early_term=True,
                     max_iter=5),
                dict(schedule="layered", beta=0, early_term=True,
                     max_iter=5)):
-        dec = make_pallas_decoder(code, qmax=127, batch_tile=8,
-                                  interpret=True, **kw)
-        hard, iters, conv = map(np.asarray, dec(chan))
         g_hard, g_iters, g_conv = _golden_batch(chan, code, qmax=127, **kw)
-        np.testing.assert_array_equal(hard, g_hard)
-        np.testing.assert_array_equal(iters, g_iters)
-        np.testing.assert_array_equal(conv, g_conv)
+        dec = make_qc_decoder(code, qmax=127, **kw)
+        outs = (tuple(map(np.asarray, dec(jnp.asarray(chan)))),
+                emulate_kernel(chan, table, Z, code.base.shape[0],
+                               kw["max_iter"], 127, kw["beta"], None,
+                               kw["schedule"] == "flooding", True))
+        for hard, iters, conv in outs:
+            np.testing.assert_array_equal(hard, g_hard)
+            np.testing.assert_array_equal(iters, g_iters)
+            np.testing.assert_array_equal(conv, g_conv)
 
 
 @pytest.mark.parametrize("kw", [
@@ -104,9 +210,8 @@ def test_wifi648_bitexact(rng, kw):
     code = make_code(648, "1/2")
     B = 4
     chan = _random_llrs(rng, B, code.n)
-    dec = make_pallas_decoder(code, qmax=127, batch_tile=4, interpret=True,
-                              **kw)
-    hard, iters, conv = map(np.asarray, dec(chan))
+    dec = make_qc_decoder(code, qmax=127, **kw)
+    hard, iters, conv = map(np.asarray, dec(jnp.asarray(chan)))
     g_hard, g_iters, g_conv = _golden_batch(chan, code, qmax=127, **kw)
     np.testing.assert_array_equal(hard, g_hard)
     np.testing.assert_array_equal(iters, g_iters)
@@ -117,84 +222,160 @@ def test_wifi648_bitexact(rng, kw):
 @pytest.mark.parametrize("bits", [4, 6])
 def test_low_bitwidth_bitexact(rng, bits):
     """Bit widths below the canonical 8 (the reference class exists to study
-    exactly this): Pallas and the jnp QC reference must stay bit-exact vs
-    golden at qmax = 2**(bits-1) - 1. Messages/posteriors only shrink, so
-    every storage path (int8 c2v, int16 totals) remains lossless."""
-    import jax.numpy as jnp
-    from ldpc_tpu.ops.decode_qc import make_qc_decoder
+    exactly this): the QC decoder and the kernel transcription must stay
+    bit-exact vs golden at qmax = 2**(bits-1) - 1. Messages/posteriors only
+    shrink, so every storage path (int8 c2v, int16 totals) stays lossless."""
     qmax = (1 << (bits - 1)) - 1
     code = toy_qc(Z=4)
     B = 8
     chan = _random_llrs(rng, B, code.n, qmax=qmax)
+    table = minsum_cuda.layer_table(code)
     for kw in (dict(schedule="flooding", beta=1, early_term=True, max_iter=6),
                dict(schedule="layered", beta=0, early_term=True, max_iter=6)):
-        dec = make_pallas_decoder(code, qmax=qmax, batch_tile=4,
-                                  interpret=True, **kw)
-        hard, iters, conv = map(np.asarray, dec(chan))
         g_hard, g_iters, g_conv = _golden_batch(chan, code, qmax=qmax, **kw)
-        np.testing.assert_array_equal(hard, g_hard)
-        np.testing.assert_array_equal(iters, g_iters)
-        np.testing.assert_array_equal(conv, g_conv)
         qdec = make_qc_decoder(code, qmax=qmax, **kw)
-        qh, qi, qc = map(np.asarray, qdec(jnp.asarray(chan)))
-        np.testing.assert_array_equal(qh, g_hard)
-        np.testing.assert_array_equal(qi, g_iters)
-        np.testing.assert_array_equal(qc, g_conv)
+        outs = (tuple(map(np.asarray, qdec(jnp.asarray(chan)))),
+                emulate_kernel(chan, table, 4, code.base.shape[0],
+                               kw["max_iter"], qmax, kw["beta"], None,
+                               kw["schedule"] == "flooding", True))
+        for hard, iters, conv in outs:
+            np.testing.assert_array_equal(hard, g_hard)
+            np.testing.assert_array_equal(iters, g_iters)
+            np.testing.assert_array_equal(conv, g_conv)
 
 
 def test_all_zero_noiseless(rng):
     """All-zeros codeword with clean LLRs converges instantly with 0 iters."""
     code = toy_qc(Z=4)
     chan = np.full((4, code.n), 60, np.int8)
-    dec = make_pallas_decoder(code, schedule="layered", early_term=True,
-                              max_iter=5, batch_tile=4, interpret=True)
-    hard, iters, conv = map(np.asarray, dec(chan))
+    dec = make_qc_decoder(code, schedule="layered", early_term=True,
+                          max_iter=5)
+    hard, iters, conv = map(np.asarray, dec(jnp.asarray(chan)))
     assert not hard.any()
     assert (iters == 0).all()
     assert conv.all()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(schedule="flooding", beta=0, early_term=False, max_iter=4),
-    dict(schedule="flooding", beta=0, early_term=True, max_iter=4),
-    dict(schedule="layered", beta=2, early_term=True, max_iter=3),
-])
 @pytest.mark.slow
-def test_vreg_layout_matches_flat(rng, kw):
-    """The vreg-exact (Z, Bs, 128) layout (batch_tile % 1024 == 0 — the TPU
-    fast path) must be bit-identical to the flat layout on the same inputs;
-    flat is golden-verified above, so transitivity covers vreg vs golden.
-    One 1024-lane tile on the toy code keeps interpret mode affordable."""
-    code = toy_qc(Z=4)
-    B = 1024
-    chan = _random_llrs(rng, B, code.n)
-    d_vreg = make_pallas_decoder(code, qmax=127, batch_tile=1024,
-                                 interpret=True, **kw)
-    d_flat = make_pallas_decoder(code, qmax=127, batch_tile=256,
-                                 interpret=True, **kw)
-    h1, i1, c1 = map(np.asarray, d_vreg(chan))
-    h2, i2, c2 = map(np.asarray, d_flat(chan))
-    np.testing.assert_array_equal(h1, h2)
-    np.testing.assert_array_equal(i1, i2)
-    np.testing.assert_array_equal(c1, c2)
-
-
-@pytest.mark.slow
-def test_vreg_layout_c2v_dtypes(rng):
+def test_c2v_dtypes(rng):
     """int16/int8 c2v STORAGE must not change results (values are clipped to
     +-qmax before storing, so narrower storage is lossless)."""
-    import jax.numpy as jnp
     code = toy_qc(Z=4)
-    chan = _random_llrs(rng, 1024, code.n)
+    chan = jnp.asarray(_random_llrs(rng, 64, code.n))
     outs = []
     for dt in (jnp.int32, jnp.int16, jnp.int8):
-        dec = make_pallas_decoder(code, qmax=127, batch_tile=1024,
-                                  schedule="flooding", early_term=False,
-                                  max_iter=4, interpret=True, c2v_dtype=dt)
+        dec = make_qc_decoder(code, qmax=127, schedule="flooding",
+                              early_term=False, max_iter=4, c2v_dtype=dt)
         outs.append(tuple(map(np.asarray, dec(chan))))
     for o in outs[1:]:
         for a, b in zip(outs[0], o):
             np.testing.assert_array_equal(a, b)
+
+
+class TestCudaWrapper:
+    """What minsum_cuda hands the kernel, checked by routing the foreign
+    call to the NumPy transcription above."""
+
+    @staticmethod
+    def _fake_ffi(monkeypatch, seen):
+        monkeypatch.setattr(minsum_cuda, "_register", lambda: None)
+
+        def ffi_call(target, result_shapes):
+            assert target == minsum_cuda._TARGET
+
+            def call(q, table, **attrs):
+                seen.append((q.shape, attrs))
+                assert q.shape[0] % int(attrs["tile"]) == 0
+
+                def host(q, table):
+                    h, it, cv = emulate_kernel(
+                        np.asarray(q), np.asarray(table), int(attrs["Z"]),
+                        int(attrs["mb"]), int(attrs["max_iter"]),
+                        int(attrs["qmax"]), int(attrs["beta"]),
+                        None if attrs["alpha_shift"] < 0 else
+                        (int(attrs["alpha_num"]), int(attrs["alpha_shift"])),
+                        bool(attrs["flooding"]), bool(attrs["early_term"]))
+                    return h, it, cv.astype(np.uint8)
+                return jax.pure_callback(host, result_shapes, q, table)
+            return call
+        monkeypatch.setattr(jax.ffi, "ffi_call", ffi_call)
+
+    @pytest.mark.parametrize("algorithm,schedule,et", [
+        ("min-sum", "flooding", False),
+        ("offset-min-sum", "layered", True),
+        ("normalized-min-sum", "flooding", True),
+    ])
+    def test_pads_to_tile_and_matches_qc(self, monkeypatch, rng, algorithm,
+                                         schedule, et):
+        from ldpc_tpu.config import DecoderConfig, QuantConfig
+        from ldpc_tpu.ops.decode_qc import make_decoder as make_qc
+        seen = []
+        self._fake_ffi(monkeypatch, seen)
+        code = toy_qc(Z=8)
+        dec_cfg = DecoderConfig(algorithm=algorithm, schedule=schedule,
+                                max_iter=6, early_term=et)
+        quant = QuantConfig(beta_lsb=2)
+        dec = minsum_cuda.make_decoder(code, dec_cfg, quant)
+        B = dec.batch_tile + 5  # not a multiple of the tile
+        chan = jnp.asarray(_random_llrs(rng, B, code.n))
+        out = tuple(map(np.asarray, jax.jit(dec)(chan)))
+        ref = tuple(map(np.asarray, make_qc(code, dec_cfg, quant)(chan)))
+        (shape, attrs), = seen
+        assert shape == (2 * dec.batch_tile, code.n)
+        assert out[0].shape == (B, code.n) and out[2].dtype == bool
+        assert int(attrs["zslots"]) == minsum_cuda.zslots(code.Z,
+                                                          dec.batch_tile)
+        assert int(attrs["n_entries"]) == int((code.base >= 0).sum())
+        for a, b in zip(out, ref):
+            np.testing.assert_array_equal(a, b)
+
+    def test_rejects_outside_domain(self):
+        from ldpc_tpu.config import DecoderConfig, PRESETS, QuantConfig
+        from ldpc_tpu.sim import build_code
+        code = toy_qc(Z=4)
+        with pytest.raises(ValueError, match="domain"):
+            minsum_cuda.make_decoder(
+                code, DecoderConfig(algorithm="min-star"), QuantConfig())
+        dvb = PRESETS["dvbs2-64800-r12"]
+        with pytest.raises(ValueError, match="domain"):
+            minsum_cuda.make_decoder(build_code(dvb), dvb.decoder, dvb.quant)
+
+
+@pytest.mark.parametrize("n,rate,schedule,tile", [
+    (648, "1/2", "flooding", 16),
+    (648, "1/2", "layered", 16),
+    (1944, "3/4", "layered", 8),
+    (1944, "1/2", "flooding", 8),
+])
+def test_pick_tile(n, rate, schedule, tile):
+    """The widest tile with which two blocks share an SM (two blocks hide
+    each other's barrier waits), else the widest that fits one block."""
+    code = make_code(n, rate)
+    assert minsum_cuda.pick_tile(code, schedule) == tile
+    used = minsum_cuda.smem_bytes(code, tile, schedule)
+    assert used <= minsum_cuda.SMEM_LIMIT
+    # the per-codeword state the footprint is built from
+    per_cw = (n * 2 * (2 if schedule == "flooding" else 1)
+              + int((code.base >= 0).sum()) * code.Z)
+    assert tile * per_cw <= used < tile * per_cw + 4096
+
+
+def test_fits_by_state_size_and_algorithm():
+    from ldpc_tpu.config import DecoderConfig, PRESETS, QuantConfig
+    from ldpc_tpu.sim import build_code
+    wifi = make_code(648, "1/2")
+    assert minsum_cuda.fits(wifi, DecoderConfig(), QuantConfig())
+    assert not minsum_cuda.fits(wifi, DecoderConfig(algorithm="min-star"),
+                                QuantConfig())
+    for name in ("dvbs2-64800-r12", "nr-bg1-layered"):
+        cfg = PRESETS[name]
+        assert not minsum_cuda.fits(build_code(cfg), cfg.decoder, cfg.quant)
+
+
+@pytest.mark.parametrize("Z,tile", [(27, 16), (81, 8), (54, 32), (8, 16)])
+def test_zslots_divides_z(Z, tile):
+    zs = minsum_cuda.zslots(Z, tile)
+    assert Z % zs == 0 and zs * tile <= minsum_cuda.MAX_THREADS
 
 
 class TestTwoPhaseET:
@@ -216,7 +397,6 @@ class TestTwoPhaseET:
 
     def test_bitexact_vs_single_phase(self, rng):
         import dataclasses
-        from ldpc_tpu.codes.toy import toy_qc
         from ldpc_tpu.sim.pipeline import select_decoder
         code = toy_qc(8)
         B = 256
@@ -244,7 +424,6 @@ class TestTwoPhaseET:
         """More unconverged lanes than capacity -> full-batch fallback, same
         results."""
         import dataclasses
-        from ldpc_tpu.codes.toy import toy_qc
         from ldpc_tpu.sim.pipeline import select_decoder
         code = toy_qc(8)
         B = 256
@@ -262,252 +441,3 @@ class TestTwoPhaseET:
         np.testing.assert_array_equal(h2, h1)
         np.testing.assert_array_equal(it2, it1)
         np.testing.assert_array_equal(cv2, cv1)
-
-
-@pytest.mark.slow
-def test_pre_transposed_decode_matches(rng):
-    """pre_transposed=True consumes (nb, Z, B) and must produce identical
-    results to the (B, n) entry on the same logical inputs — both layouts,
-    with and without ET."""
-    from ldpc_tpu.codes.ieee80211n import make_code as wifi_code
-    code = wifi_code(648, "1/2")
-    B = 1024
-    chan = _random_llrs(rng, B, code.n)
-    for bt, kw in ((1024, dict(schedule="flooding", early_term=False,
-                               max_iter=4)),
-                   (256, dict(schedule="layered", early_term=True,
-                              max_iter=3, beta=2))):
-        d_n = make_pallas_decoder(code, qmax=127, batch_tile=bt,
-                                  interpret=True, **kw)
-        d_t = make_pallas_decoder(code, qmax=127, batch_tile=bt,
-                                  interpret=True, pre_transposed=True, **kw)
-        nb, Z = code.base.shape[1], code.Z
-        chan_t = np.ascontiguousarray(
-            chan.reshape(B, nb, Z).transpose(1, 2, 0))
-        h1, i1, c1 = map(np.asarray, d_n(chan))
-        h2t, i2, c2 = map(np.asarray, d_t(chan_t))
-        h2 = h2t.reshape(code.n, B).T
-        np.testing.assert_array_equal(h1, h2)
-        np.testing.assert_array_equal(i1, i2)
-        np.testing.assert_array_equal(c1, c2)
-
-
-@pytest.mark.slow
-def test_fused_io_counts_match(rng):
-    """input_scale (in-kernel quantizer) + count_info_cols (in-kernel error
-    counting) must reproduce exactly the external quantize + XLA counting on
-    the same float LLRs — both ET and fixed-iteration paths."""
-    from ldpc_tpu.codes.ieee80211n import make_code as wifi_code
-    from ldpc_tpu.ops.quantize import quantize
-    from ldpc_tpu.config import QuantConfig
-    import jax.numpy as jnp
-    code = wifi_code(648, "1/2")
-    nb, Z = code.base.shape[1], code.Z
-    kb = code.k // Z
-    B = 512
-    scale = 4.0
-    llr = (rng.standard_normal((code.n, B)) * 8).astype(np.float32)
-    info = rng.integers(0, 2, (code.k, B)).astype(np.uint8)
-    for kw in (dict(schedule="flooding", early_term=False, max_iter=4),
-               dict(schedule="flooding", early_term=True, max_iter=4),
-               dict(schedule="layered", early_term=True, max_iter=3,
-                    beta=2)):
-        d_f = make_pallas_decoder(code, qmax=127, batch_tile=256,
-                                  interpret=True, pre_transposed=True,
-                                  input_scale=scale, count_info_cols=kb,
-                                  **kw)
-        d_p = make_pallas_decoder(code, qmax=127, batch_tile=256,
-                                  interpret=True, pre_transposed=True, **kw)
-        bits, frame, it_f, cv_f = map(np.asarray, d_f(
-            jnp.asarray(llr).reshape(nb, Z, B),
-            jnp.asarray(info).reshape(kb, Z, B)))
-        q = np.asarray(quantize(jnp.asarray(llr),
-                                QuantConfig(bits=8, scale=scale)))
-        h_p, it_p, cv_p = map(np.asarray, d_p(
-            jnp.asarray(q).reshape(nb, Z, B)))
-        err = h_p.reshape(code.n, B)[:code.k] != info
-        np.testing.assert_array_equal(bits, err.sum(axis=0))
-        np.testing.assert_array_equal(frame.astype(bool), err.any(axis=0))
-        np.testing.assert_array_equal(it_f, it_p)
-        np.testing.assert_array_equal(cv_f, cv_p)
-
-
-@pytest.mark.slow
-def test_mc_megakernel_inject_matches(rng):
-    """Monte-Carlo megakernel (in-kernel info bits, QC encode, Box-Muller
-    AWGN, demap, quantize, decode, count) with injected random words must
-    reproduce exactly a jnp reference applying the identical formulas plus
-    the already-trusted plain interpret kernel — flooding and layered."""
-    import jax
-    import jax.numpy as jnp
-    from ldpc_tpu.codes.ieee80211n import make_code as wifi_code
-    from ldpc_tpu.codes.qcstruct import qc_encode_numpy
-
-    code = wifi_code(648, "1/2")
-    nb, Z = code.base.shape[1], code.Z
-    kb = code.k // Z
-    nph = (nb + 1) // 2
-    B = 256
-    scale, qmax = 4.0, 127
-    sigma = 0.82
-    gain = np.float32(2.0) * np.float32(scale) / (np.float32(sigma)
-                                                  * np.float32(sigma))
-    u_info = rng.integers(0, 1 << 32, (kb, Z, B), dtype=np.uint32)
-    u_n1 = rng.integers(0, 1 << 32, (nph, Z, B), dtype=np.uint32)
-    u_n2 = rng.integers(0, 1 << 32, (nph, Z, B), dtype=np.uint32)
-    ui = jnp.asarray(u_info.view(np.int32))
-    u1 = jnp.asarray(u_n1.view(np.int32))
-    u2 = jnp.asarray(u_n2.view(np.int32))
-
-    # jnp reference with the kernel's exact op sequence (same XLA backend
-    # as interpret mode, so transcendentals match bit-for-bit).
-    def to_unit(w):
-        wu = jax.lax.bitcast_convert_type(w, jnp.uint32)
-        s = jax.lax.shift_right_logical(wu, jnp.uint32(8))
-        si = jax.lax.bitcast_convert_type(s, jnp.int32)
-        return (si.astype(jnp.float32) * jnp.float32(2.0 ** -24)
-                + jnp.float32(2.0 ** -25))
-
-    info = (u_info & 1).astype(np.uint8)            # (kb, Z, B)
-    cw = qc_encode_numpy(code, info.reshape(code.k, B).T).T  # (n, B)
-    f1, f2 = to_unit(u1), to_unit(u2)
-    r = jnp.sqrt(jnp.float32(-2.0) * jnp.log(f1))
-    th = jnp.float32(2.0 * np.pi) * f2
-    nrm = jnp.stack([r * jnp.cos(th), r * jnp.sin(th)], axis=1).reshape(
-        2 * nph, Z, B)[:nb]                         # (nb, Z, B)
-    xf = (jnp.float32(1.0)
-          - jnp.float32(2.0) * jnp.asarray(cw.reshape(nb, Z, B), jnp.int32)
-          .astype(jnp.float32))
-    xs = (xf + jnp.float32(sigma) * nrm) * gain
-    q = jnp.where(xs >= 0, jnp.floor(xs + 0.5), jnp.ceil(xs - 0.5))
-    q = jnp.clip(q, -qmax, qmax).astype(jnp.int8)
-
-    for kw in (dict(schedule="flooding", early_term=False, max_iter=4),
-               dict(schedule="layered", early_term=True, max_iter=3,
-                    beta=2)):
-        d_mc = make_pallas_decoder(code, qmax=qmax, batch_tile=128,
-                                   interpret=True, input_scale=scale,
-                                   count_info_cols=kb, mc_batch=B,
-                                   inject_random=True, **kw)
-        d_p = make_pallas_decoder(code, qmax=qmax, batch_tile=128,
-                                  interpret=True, pre_transposed=True, **kw)
-        seeds = jnp.zeros((3,), jnp.int32)
-        chanf = jnp.asarray([sigma, gain], jnp.float32)
-        bits, frame, it_m, cv_m = map(np.asarray,
-                                      d_mc(seeds, chanf, ui, u1, u2))
-        h_p, it_p, cv_p = map(np.asarray, d_p(q))
-        err = h_p.reshape(code.n, B)[:code.k] != info.reshape(code.k, B)
-        np.testing.assert_array_equal(bits, err.sum(axis=0))
-        np.testing.assert_array_equal(frame.astype(bool), err.any(axis=0))
-        np.testing.assert_array_equal(it_m, it_p)
-        np.testing.assert_array_equal(cv_m, cv_p)
-
-
-@pytest.mark.slow
-def test_mc_inner_loop_matches_grid(rng):
-    """mc_inner_loop=True runs every batch tile inside ONE grid step (kills
-    the measured ~12.6 us/step Mosaic re-entry); with injected random words
-    it must be bit-identical to the per-tile-grid megakernel — the PRNG mix
-    uses the tile index either way, so the contract extends to hardware."""
-    import jax.numpy as jnp
-    from ldpc_tpu.codes.ieee80211n import make_code as wifi_code
-
-    code = wifi_code(648, "1/2")
-    nb, Z = code.base.shape[1], code.Z
-    kb = code.k // Z
-    nph = (nb + 1) // 2
-    B = 256  # two tiles of 128 — the inner loop actually iterates
-    scale, qmax = 4.0, 127
-    sigma, gain = 0.82, np.float32(2.0 * 4.0 / (0.82 * 0.82))
-    ui = jnp.asarray(rng.integers(0, 1 << 32, (kb, Z, B),
-                                  dtype=np.uint32).view(np.int32))
-    u1 = jnp.asarray(rng.integers(0, 1 << 32, (nph, Z, B),
-                                  dtype=np.uint32).view(np.int32))
-    u2 = jnp.asarray(rng.integers(0, 1 << 32, (nph, Z, B),
-                                  dtype=np.uint32).view(np.int32))
-    seeds = jnp.zeros((3,), jnp.int32)
-    chanf = jnp.asarray([sigma, gain], jnp.float32)
-    outs = []
-    for inner in (False, True):
-        d = make_pallas_decoder(code, qmax=qmax, batch_tile=128,
-                                interpret=True, input_scale=scale,
-                                count_info_cols=kb, mc_batch=B,
-                                inject_random=True, mc_inner_loop=inner,
-                                schedule="flooding", early_term=False,
-                                max_iter=4)
-        outs.append(tuple(map(np.asarray, d(seeds, chanf, ui, u1, u2))))
-    for a, b in zip(*outs):
-        np.testing.assert_array_equal(a, b)
-
-
-@pytest.mark.parametrize("inner,bt,B", [
-    (False, 128, 256),   # flat layout, grid mode
-    (True, 128, 256),    # flat layout, internal tile loop
-    (True, 1024, 2048),  # vreg-exact layout (production run_fused default)
-])
-@pytest.mark.slow
-def test_mc_lane_sigma_matches_scalar(inner, bt, B, rng):
-    """Per-lane-sigma megakernel (the fused multi-SNR sweep mode): with
-    injected random words, every lane must equal the SCALAR-sigma megakernel
-    run at that lane's sigma — lanes are independent and the injected stream
-    is identical, so the contract is exact equality, stripe by stripe."""
-    import jax.numpy as jnp
-
-    code = make_code(648, "1/2")
-    nb, Z = code.base.shape[1], code.Z
-    kb = code.k // Z
-    nph = (nb + 1) // 2
-    P = 2
-    scale, qmax = 4.0, 127
-    sigmas = np.asarray([0.55, 1.1], np.float32)
-    ui = jnp.asarray(rng.integers(0, 1 << 32, (kb, Z, B),
-                                  dtype=np.uint32).view(np.int32))
-    u1 = jnp.asarray(rng.integers(0, 1 << 32, (nph, Z, B),
-                                  dtype=np.uint32).view(np.int32))
-    u2 = jnp.asarray(rng.integers(0, 1 << 32, (nph, Z, B),
-                                  dtype=np.uint32).view(np.int32))
-    seeds = jnp.zeros((3,), jnp.int32)
-    kw = dict(qmax=qmax, batch_tile=bt, interpret=True, input_scale=scale,
-              count_info_cols=kb, mc_batch=B, inject_random=True,
-              mc_inner_loop=inner, schedule="flooding", early_term=True,
-              max_iter=4, beta=2)
-    point = np.arange(B) % P
-    sig_lane = jnp.asarray(sigmas[point])
-    gain_lane = jnp.float32(2.0 * scale) / (sig_lane * sig_lane)
-    d_lane = make_pallas_decoder(code, mc_lane_sigma=True, **kw)
-    lane_out = tuple(map(np.asarray, d_lane(
-        seeds, jnp.zeros((2,), jnp.float32), ui, u1, u2,
-        sigma_lane=sig_lane, gain_lane=gain_lane)))
-    d_scalar = make_pallas_decoder(code, **kw)
-    for p in range(P):
-        sig = float(sigmas[p])
-        chanf = jnp.asarray(
-            [sig, np.float32(2.0 * scale) / np.float32(sig * sig)],
-            jnp.float32)
-        ref = tuple(map(np.asarray, d_scalar(seeds, chanf, ui, u1, u2)))
-        sel = point == p
-        for a, b in zip(lane_out, ref):
-            np.testing.assert_array_equal(a[sel], b[sel])
-
-
-@pytest.mark.parametrize("code_fn,max_iter", [
-    (lambda: toy_qc(4), 5),            # mb=3: odd -> unpaired tail layer
-    (lambda: make_code(648, "1/2"), 4),  # mb=12: fully paired
-])
-@pytest.mark.slow
-def test_pair_layers_bitexact(code_fn, max_iter, rng):
-    """Opt-in paired flooding sweep (two base rows stacked on sublanes,
-    +qmax pad slots) must equal the unpaired kernel EXACTLY — the pad can
-    never displace min1/min2 (all real magnitudes <= qmax, degrees >= 2)
-    nor flip the parity XOR (positive pad)."""
-    code = code_fn()
-    chan = _random_llrs(rng, 8, code.n)
-    kw = dict(schedule="flooding", early_term=False, max_iter=max_iter,
-              beta=1, qmax=127, batch_tile=4, interpret=True)
-    ref = make_pallas_decoder(code, **kw)
-    paired = make_pallas_decoder(code, pair_layers=True, **kw)
-    h0, i0, c0 = map(np.asarray, ref(chan))
-    h1, i1, c1 = map(np.asarray, paired(chan))
-    np.testing.assert_array_equal(h1, h0)
-    np.testing.assert_array_equal(i1, i0)
-    np.testing.assert_array_equal(c1, c0)

@@ -1,20 +1,18 @@
-"""Multi-chip correctness beyond the canonical wifi pipeline (round 5).
+"""Multi-device correctness beyond the canonical wifi pipeline.
 
-Round-4's mesh evidence exercised only the jnp/megakernel paths; these
-tests pin the two remaining production backends under a REAL 2x4
-("dcn","ici") mesh on the 8 fake CPU devices:
+These tests pin the production paths under a 2x4 ("host","device") mesh on
+the 8 virtual CPU devices:
 
-  * the HBM-streaming Pallas kernel (the DVB-S2/NR regime) through both
-    product seams — make_run_batch (sweeps) and make_is_run (IS floors)
-    — now executed per-shard via shard_map (sim/pipeline.py,
-    sim/impsamp.py: the SPMD partitioner would otherwise gather +
-    replicate around the opaque custom call on real hardware);
+  * the QC-XLA decoder (the DVB-S2/NR regime) through both product seams —
+    make_run_batch (sweeps) and make_is_run (IS floors);
+  * the shard_map seam that runs the CUDA kernel per device shard
+    (sim/pipeline.maybe_shard_map_decoder: the SPMD partitioner would
+    otherwise gather and replicate around the opaque foreign call);
   * the fused multi-SNR sweep program under the 2-axis mesh (the
     existing fused invariance test covers only the flat 8-device mesh).
 
 Counter identity across mesh shapes is the repo invariant (CLAUDE.md:
-partitionable threefry, fold_in(seed, snr, batch)); Pallas runs in
-interpret mode on CPU (slow lane)."""
+partitionable threefry, fold_in(seed, snr, batch))."""
 import dataclasses
 
 import numpy as np
@@ -41,44 +39,32 @@ def _cfg(batch=256, all_zeros=True, **dec_kw):
                                    all_zeros=all_zeros))
 
 
-def _force_stream(monkeypatch):
-    """Route the pallas ladder to the HBM-streaming kernel by making the
-    VMEM fits-probe fail (the toy code would otherwise fit VMEM)."""
-    from ldpc_tpu.kernels import minsum_pallas as mp
-    monkeypatch.setattr(mp, "vmem_bytes",
-                        lambda *a, **k: 1 << 40)
-
-
 @pytest.mark.slow
-def test_stream_backend_mesh_2x4_counter_identity(monkeypatch):
-    """The stream kernel through make_run_batch: unsharded == 2x4-mesh
-    counters, with the decode running under shard_map per shard."""
-    _force_stream(monkeypatch)
+def test_qc_backend_mesh_2x4_counter_identity():
+    """The QC-XLA decoder through make_run_batch: unsharded == 2x4-mesh
+    counters."""
     cfg = _cfg(batch=256)
     from ldpc_tpu.sim.sweep import build_code
     code = build_code(cfg)
     key = jax.random.PRNGKey(7)
     sigma = np.float32(0.8)
-    rb1 = make_run_batch(code, cfg, decoder_backend="pallas",
-                         interpret=True)
-    assert rb1.backend_label == "pallas-stream"
+    rb1 = make_run_batch(code, cfg, decoder_backend="qc-jnp")
+    assert rb1.backend_label == "qc-jnp"
     out1 = tuple(map(int, rb1(key, sigma)))
-    mesh = make_mesh(shape=(2, 4), axes=("dcn", "ici"))
-    rb8 = make_run_batch(code, cfg, mesh=mesh, decoder_backend="pallas",
-                         interpret=True)
-    assert rb8.backend_label == "pallas-stream"
+    mesh = make_mesh(shape=(2, 4), axes=("host", "device"))
+    rb8 = make_run_batch(code, cfg, mesh=mesh, decoder_backend="qc-jnp")
+    assert rb8.backend_label == "qc-jnp"
     out8 = tuple(map(int, rb8(key, sigma)))
     assert out1 == out8
     assert out1[2] > 0  # frame errors at this sigma: the test is live
 
 
 @pytest.mark.slow
-def test_is_floor_stream_mesh_2x4_counter_identity(monkeypatch):
-    """Mixture-IS (the DVB floor chain) through the stream kernel under a
+def test_is_floor_qc_mesh_2x4_counter_identity():
+    """Mixture-IS (the DVB floor chain) through the QC-XLA decoder under a
     2x4 mesh: stacked IS sums identical to unsharded — the same identity
-    the flat-mesh wifi tests pin (tests/test_trapping.py), now for the
-    HBM-regime backend and the 2-axis mesh."""
-    _force_stream(monkeypatch)
+    the flat-mesh wifi tests pin (tests/test_trapping.py), for the 2-axis
+    mesh."""
     cfg = _cfg(batch=256)
     from ldpc_tpu.sim.impsamp import make_is_run
     from ldpc_tpu.sim.sweep import build_code
@@ -86,18 +72,18 @@ def test_is_floor_stream_mesh_2x4_counter_identity(monkeypatch):
     sets = [[0, 3, 9], [1, 4]]
     key = jax.random.PRNGKey(11)
     r1 = make_is_run(code, cfg, sets=sets, delta=1.5, pi0=0.5, batch=256,
-                     backend="pallas", interpret=True)
+                     backend="qc-jnp")
     o1 = np.asarray(r1(key, 0.8))
-    mesh = make_mesh(shape=(2, 4), axes=("dcn", "ici"))
+    mesh = make_mesh(shape=(2, 4), axes=("host", "device"))
     r8 = make_is_run(code, cfg, sets=sets, delta=1.5, pi0=0.5, batch=256,
-                     backend="pallas", interpret=True, mesh=mesh)
+                     backend="qc-jnp", mesh=mesh)
     o8 = np.asarray(r8(key, 0.8))
     np.testing.assert_allclose(o1, o8, rtol=1e-6)
     assert o1[2] > 0  # raw hits present: the identity is non-vacuous
 
 
 def test_fused_sweep_mesh_2x4_counter_identity():
-    """Fused multi-SNR program under the 2-axis ("dcn","ici") mesh ==
+    """Fused multi-SNR program under the 2-axis ("host","device") mesh ==
     unsharded, point-for-point (lane->point striping must survive 2-axis
     batch sharding)."""
     cfg = _cfg(batch=192, all_zeros=False)
@@ -107,7 +93,7 @@ def test_fused_sweep_mesh_2x4_counter_identity():
     sigmas = jnp.asarray([0.7, 0.9, 1.2], jnp.float32)
     out1 = np.asarray(make_run_batch(code, cfg, decoder_backend="jnp",
                                      n_points=3)(key, sigmas))
-    mesh = make_mesh(shape=(2, 4), axes=("dcn", "ici"))
+    mesh = make_mesh(shape=(2, 4), axes=("host", "device"))
     out8 = np.asarray(make_run_batch(code, cfg, mesh=mesh, n_points=3,
                                      decoder_backend="jnp")(key, sigmas))
     np.testing.assert_array_equal(out1, out8)
@@ -115,42 +101,41 @@ def test_fused_sweep_mesh_2x4_counter_identity():
 
 
 @pytest.mark.slow
-def test_stream_mesh_flat8_matches_2x4(monkeypatch):
-    """Mesh-SHAPE invariance for the stream backend: flat 8 == 2x4
+def test_qc_mesh_flat8_matches_2x4():
+    """Mesh-SHAPE invariance for the QC-XLA backend: flat 8 == 2x4
     (counters depend only on the global batch + seed, never the mesh
     factorization)."""
-    _force_stream(monkeypatch)
     cfg = _cfg(batch=256)
     from ldpc_tpu.sim.sweep import build_code
     code = build_code(cfg)
     key = jax.random.PRNGKey(7)
     sigma = np.float32(0.8)
     outs = []
-    for shape, axes in (((8,), ("batch",)), ((2, 4), ("dcn", "ici"))):
+    for shape, axes in (((8,), ("batch",)), ((2, 4), ("host", "device"))):
         mesh = make_mesh(shape=shape, axes=axes)
-        rb = make_run_batch(code, cfg, mesh=mesh,
-                            decoder_backend="pallas", interpret=True)
-        assert rb.backend_label == "pallas-stream"
+        rb = make_run_batch(code, cfg, mesh=mesh, decoder_backend="qc-jnp")
+        assert rb.backend_label == "qc-jnp"
         outs.append(tuple(map(int, rb(key, sigma))))
     assert outs[0] == outs[1]
 
 
 def test_maybe_shard_map_decoder_guards():
-    """The wrapper applies only to pallas labels with a dividing per-shard
-    tile, and preserves batch_tile when it does wrap."""
+    """The wrapper applies only to the CUDA kernel's label under a mesh,
+    preserves batch_tile, and runs the decoder per shard with results
+    identical to the unsharded call."""
     from ldpc_tpu.sim.pipeline import maybe_shard_map_decoder
-    mesh = make_mesh(shape=(2, 4), axes=("dcn", "ici"))
+    mesh = make_mesh(shape=(2, 4), axes=("host", "device"))
 
     def fake_dec(q):
-        return q, q[:, 0], q[:, 0]
+        return q, q[:, 0].astype(jnp.int32), q[:, 1] > 0
 
-    fake_dec.batch_tile = 128
-    # non-pallas label: unchanged
-    assert maybe_shard_map_decoder(fake_dec, "qc-jnp", mesh, 1024) is fake_dec
+    fake_dec.batch_tile = 16
+    # other labels: unchanged
+    assert maybe_shard_map_decoder(fake_dec, "qc-jnp", mesh) is fake_dec
     # no mesh: unchanged
-    assert maybe_shard_map_decoder(fake_dec, "pallas", None, 1024) is fake_dec
-    # per-shard batch (1024/8 = 128) divides tile: wrapped, tile preserved
-    w = maybe_shard_map_decoder(fake_dec, "pallas", mesh, 1024)
-    assert w is not fake_dec and w.batch_tile == 128
-    # per-shard batch (256/8 = 32) does NOT divide tile 128: unchanged
-    assert maybe_shard_map_decoder(fake_dec, "pallas", mesh, 256) is fake_dec
+    assert maybe_shard_map_decoder(fake_dec, "qc-cuda", None) is fake_dec
+    w = maybe_shard_map_decoder(fake_dec, "qc-cuda", mesh)
+    assert w is not fake_dec and w.batch_tile == 16
+    q = jnp.arange(64 * 4, dtype=jnp.int32).reshape(64, 4) % 7 - 3
+    for a, b in zip(jax.jit(w)(q), fake_dec(q)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

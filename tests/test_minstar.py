@@ -166,35 +166,24 @@ class TestMinstarDE:
         np.testing.assert_allclose(tr_p, tr_s[:len(tr_p)], atol=1e-12)
 
 
-class TestPallasMinstar:
-    """The round-5 Pallas VMEM min* kernel (minsum_pallas._cn_minstar):
-    unrolled prefix/suffix box-plus in the layer sweep, bit-exact vs the
-    QC-jnp mirror of golden (which TestQCEquality pins to golden)."""
-
-    @pytest.mark.slow
-    @pytest.mark.parametrize("schedule,early_term",
-                             [("layered", True), ("layered", False),
-                              ("flooding", True), ("flooding", False)])
-    def test_interpret_matches_qc_jnp(self, schedule, early_term):
-        from ldpc_tpu.kernels.minsum_pallas import make_decoder as make_pl
-        from ldpc_tpu.ops.decode_qc import make_decoder as make_qc
-        code = toy_qc(8)
-        quant = QuantConfig(bits=6, scale=4.0, beta_lsb=0)
-        dec_cfg = DecoderConfig(algorithm="min-star", max_iter=8,
-                                schedule=schedule, early_term=early_term)
-        rng = np.random.default_rng(7)
-        chan = rng.integers(-25, 25, size=(16, code.n)).astype(np.int8)
-        hq, iq, cq = make_qc(code, dec_cfg, quant)(jnp.asarray(chan))
-        hp, ip, cp = make_pl(code, dec_cfg, quant, batch_tile=16,
-                             interpret=True)(jnp.asarray(chan))
-        np.testing.assert_array_equal(np.asarray(hq), np.asarray(hp))
-        np.testing.assert_array_equal(np.asarray(iq), np.asarray(ip))
-        np.testing.assert_array_equal(np.asarray(cq), np.asarray(cp))
+class TestQCMinstar:
+    """min* stays on the QC-XLA decoder on every platform (the CUDA kernel
+    covers the min-sum family only)."""
 
     def test_rejects_beta_alpha_combination(self):
-        from ldpc_tpu.kernels.minsum_pallas import make_pallas_decoder
+        from ldpc_tpu.ops.decode_qc import make_qc_decoder
         with pytest.raises(ValueError, match="beta/alpha"):
-            make_pallas_decoder(toy_qc(8), beta=1, minstar=(8, 3, 0))
+            make_qc_decoder(toy_qc(8), beta=1, minstar=(8, 3, 0))
+
+    def test_gpu_auto_routes_to_qc_jnp(self, monkeypatch):
+        import jax
+
+        from ldpc_tpu.sim.pipeline import select_decoder
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        cfg = SimConfig(code=CodeConfig(),
+                        decoder=DecoderConfig(algorithm="min-star"))
+        _, label = select_decoder(make_wifi(648, "1/2"), cfg, "auto")
+        assert label == "qc-jnp"
 
 
 class TestOracleMinstar:
@@ -233,9 +222,8 @@ class TestPipelineIntegration:
                                                max_iter=10, **dec_kw))
 
     def test_select_decoder_routes_to_qc_on_cpu(self):
-        # CPU "auto" resolves to the QC-XLA backend (the edge-gather jnp
-        # decoder has no min* update); on TPU the same call would route
-        # to the Pallas VMEM kernel for VMEM-resident codes.
+        # "auto" resolves to the QC-XLA backend (the edge-gather jnp
+        # decoder has no min* update, the CUDA kernel no min* variant).
         from ldpc_tpu.sim.pipeline import select_decoder
         code = make_wifi(648, "1/2")
         dec, label = select_decoder(code, self._cfg(), "auto", batch=64)

@@ -74,36 +74,21 @@ def test_qc_and_oracle_match_golden(rng):
 
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
-def test_pallas_vmem_matches_golden(rng, schedule):
-    from ldpc_tpu.kernels.minsum_pallas import make_pallas_decoder
+def test_qc_et_matches_golden(rng, schedule):
+    """NMS with early termination through decode_qc (the reference the CUDA
+    kernel is compared with on the card) against golden, lane by lane."""
+    from ldpc_tpu.ops.decode_qc import make_qc_decoder
     code = toy_qc(8)
     B = 128
     chan = rng.integers(-40, 40, size=(B, code.n)).astype(np.int8)
-    dec = make_pallas_decoder(code, max_iter=4, beta=0, qmax=127,
-                              schedule=schedule, early_term=True,
-                              batch_tile=128, interpret=True, alpha=ALPHA)
+    dec = make_qc_decoder(code, max_iter=4, beta=0, qmax=127,
+                          schedule=schedule, early_term=True, alpha=ALPHA)
     h, it, cv = map(np.asarray, dec(jnp.asarray(chan)))
     for b in range(12):
         g = decode_fixed(chan[b], code, max_iter=4, beta=0, qmax=127,
                          schedule=schedule, early_term=True, alpha=ALPHA)
         np.testing.assert_array_equal(g.hard, h[b])
         assert (g.iters, g.converged) == (int(it[b]), bool(cv[b])), b
-
-
-@pytest.mark.slow
-def test_stream_kernel_matches_oracle(rng):
-    from ldpc_tpu.kernels.minsum_stream import make_stream_decoder
-    code = make_code(648, "1/2")
-    B = 128
-    chan = rng.integers(-40, 40, size=(B, code.n)).astype(np.int8)
-    dec = make_stream_decoder(code, max_iter=4, beta=0, qmax=127,
-                              batch_tile=128, interpret=True, alpha=ALPHA)
-    h, it, cv = map(np.asarray, dec(jnp.asarray(chan)))
-    ho, ito, cvo = oracle.decode_batch(chan, code, max_iter=4, beta=0,
-                                       qmax=127, schedule="layered",
-                                       early_term=False, alpha=ALPHA)
-    np.testing.assert_array_equal(h, ho)
-    np.testing.assert_array_equal(cv, cvo)
 
 
 def test_nms_beats_minsum_ber(rng):

@@ -211,17 +211,16 @@ class TestQCPEGFamilyConfig:
 
 
 @pytest.mark.slow
-class TestQCPEGPallas:
-    def test_pallas_kernel_bit_exact_on_constructed_code(self):
-        # Constructed codes must be first-class on the VMEM Pallas kernel
-        # too (interpret mode = the sanitizer; exact equality vs golden).
+class TestQCPEGDecode:
+    def test_qc_decoder_bit_exact_on_constructed_code(self):
+        # Constructed codes must be first-class on the QC decoder too
+        # (exact equality vs golden).
         import jax.numpy as jnp
-        from ldpc_tpu.kernels.minsum_pallas import make_pallas_decoder
+        from ldpc_tpu.ops.decode_qc import make_qc_decoder
         code = qc_peg_construct(kb=12, cb=12, Z=27, col_degrees=3, seed=4)
         rng = np.random.default_rng(3)
         chan = rng.integers(-31, 32, (4, code.n)).astype(np.int8)
-        dec = make_pallas_decoder(code, max_iter=6, beta=2, batch_tile=4,
-                                  interpret=True, schedule="layered")
+        dec = make_qc_decoder(code, max_iter=6, beta=2, schedule="layered")
         hard, iters, conv = map(np.asarray, dec(jnp.asarray(chan)))
         for b in range(4):
             ref = decode_fixed(chan[b].astype(np.int32), code, max_iter=6,
@@ -324,16 +323,15 @@ class TestPBRL:
 
 
 @pytest.mark.slow
-class TestPBRLPallas:
-    def test_pallas_kernel_bit_exact_on_pbrl(self):
+class TestPBRLDecode:
+    def test_qc_decoder_bit_exact_on_pbrl(self):
         import jax.numpy as jnp
         from ldpc_tpu.codes.peg import pbrl_construct
-        from ldpc_tpu.kernels.minsum_pallas import make_pallas_decoder
+        from ldpc_tpu.ops.decode_qc import make_qc_decoder
         code = pbrl_construct(kb=8, cb=4, Z=16, n_ext=6, seed=1)
         rng = np.random.default_rng(7)
         chan = rng.integers(-31, 32, (4, code.n)).astype(np.int8)
-        dec = make_pallas_decoder(code, max_iter=5, beta=2, batch_tile=4,
-                                  interpret=True, schedule="layered")
+        dec = make_qc_decoder(code, max_iter=5, beta=2, schedule="layered")
         hard, iters, conv = map(np.asarray, dec(jnp.asarray(chan)))
         for b in range(4):
             ref = decode_fixed(chan[b].astype(np.int32), code, max_iter=5,

@@ -1,17 +1,13 @@
-"""QAM through the transposed fast path (round-3 VERDICT item 2).
+"""Higher-order modulations and fused sweeps through the batch-first chain.
 
 Layers of evidence:
-  * ops: modulate_t / awgn_t / demap_t (native batch-LAST channel ops) are
-    bit-exact against transposing the batch-first ops, for every
-    modulation, scalar and per-lane sigma;
+  * every modulation runs end to end through make_run_batch (encode ->
+    modulate -> AWGN -> demap -> quantize -> decode -> count) and decodes a
+    noiseless channel without error;
   * dispatch: the BASELINE QAM workload (802.11n n=1944 r=3/4 16-QAM OMS
-    layered ET — config.PRESETS['multihost-qam-chain']) now resolves onto
-    the transposed Pallas path instead of the batch-first host chain;
-  * end-to-end: the transposed QAM pipeline's BER statistics match the
-    batch-first reference chain (same decoder semantics, independent RNG
-    layout) within Monte-Carlo tolerance;
-  * fused multi-SNR (n_points > 1) with host RNG rides the transposed path
-    too (per-lane sigma broadcasts on the trailing batch axis).
+    layered ET — config.PRESETS['multihost-qam-chain']) resolves to the
+    CUDA kernel on a GPU and to the QC-XLA decoder elsewhere;
+  * fused multi-SNR (n_points > 1): per-lane sigma, per-point counters.
 """
 import dataclasses
 
@@ -24,36 +20,33 @@ from ldpc_tpu.ops import channel as ch
 
 
 @pytest.mark.parametrize("mod", ch.MODULATIONS)
-def test_modulate_demap_t_bitexact(mod, rng):
-    B, n = 48, 1944
-    m = ch.BITS_PER_SYM[mod]
-    n -= n % m
-    bits = rng.integers(0, 2, size=(B, n), dtype=np.uint8)
-    x = ch.modulate(jnp.asarray(bits), mod)
-    xt = ch.modulate_t(jnp.asarray(bits.T), mod)
-    ref = (np.asarray(x).T if mod == "bpsk"
-           else np.moveaxis(np.asarray(x), 0, -1))
-    np.testing.assert_array_equal(np.asarray(xt), ref)
-    # demap on the SAME injected y in both layouts, scalar + per-lane sigma
-    sigma = 0.4
-    y = np.asarray(x) + rng.normal(0, sigma, np.asarray(x).shape).astype(
-        np.float32)
-    yt = np.moveaxis(y, 0, -1)
-    l_bf = np.asarray(ch.demap(jnp.asarray(y), sigma, mod))
-    l_t = np.asarray(ch.demap_t(jnp.asarray(yt), sigma, mod))
-    np.testing.assert_array_equal(l_t, l_bf.T)
-    sig_lane = np.linspace(0.3, 0.7, B).astype(np.float32)
-    l_bf2 = np.asarray(ch.demap(jnp.asarray(y), jnp.asarray(sig_lane), mod))
-    l_t2 = np.asarray(ch.demap_t(jnp.asarray(yt), jnp.asarray(sig_lane),
-                                 mod))
-    np.testing.assert_array_equal(l_t2, l_bf2.T)
+def test_noiseless_chain_every_modulation(mod):
+    """n=180 toy code (a multiple of every symbol size): at negligible noise
+    every frame decodes, with zero info-bit errors."""
+    from ldpc_tpu.config import (CodeConfig, DecoderConfig, QuantConfig,
+                                 RunConfig, SimConfig, ChannelConfig)
+    from ldpc_tpu.sim import build_code, make_run_batch
+    cfg = SimConfig(code=CodeConfig(family="toy", Z=30),
+                    channel=ChannelConfig(modulation=mod),
+                    quant=QuantConfig(beta_lsb=2),
+                    decoder=DecoderConfig(algorithm="offset-min-sum",
+                                          schedule="layered", max_iter=4),
+                    run=RunConfig(batch=64))
+    code = build_code(cfg)
+    rb = make_run_batch(code, cfg)
+    assert rb.backend_label == "qc-jnp"
+    out = np.asarray(rb(jax.random.PRNGKey(1), jnp.float32(1e-3)))
+    assert out[0] == 64 and out[1] == 0 and out[2] == 0 and out[4] == 64
 
 
-def test_awgn_t_scalar_matches_awgn(rng):
-    key = jax.random.PRNGKey(9)
-    x = jnp.asarray(rng.standard_normal((12, 2, 32)).astype(np.float32))
-    np.testing.assert_array_equal(np.asarray(ch.awgn_t(key, x, 0.5)),
-                                  np.asarray(ch.awgn(key, x, 0.5)))
+def test_awgn_vector_sigma_matches_scalar(rng):
+    """A per-lane sigma vector equal everywhere to a scalar gives the same
+    noisy symbols (the fused sweep relies on the broadcast)."""
+    key = jax.random.PRNGKey(0)
+    x = jnp.asarray(rng.standard_normal((6, 40)).astype(np.float32))
+    a = np.asarray(ch.awgn(key, x, 0.5))
+    b = np.asarray(ch.awgn(key, x, jnp.full((6,), 0.5, jnp.float32)))
+    np.testing.assert_array_equal(a, b)
 
 
 def _qam_cfg(batch, max_iter=20):
@@ -65,47 +58,22 @@ def _qam_cfg(batch, max_iter=20):
         decoder=dataclasses.replace(cfg.decoder, max_iter=max_iter))
 
 
-def test_qam_workload_dispatches_transposed():
-    """The BASELINE QAM workload must resolve to the Pallas VMEM kernel
-    through the transposed path (the round-2 gap: mod != 'bpsk' forced the
-    batch-first host chain)."""
-    from ldpc_tpu.sim import build_code, make_run_batch
+def test_qam_workload_dispatch(monkeypatch):
+    """The BASELINE QAM workload takes the CUDA kernel on a GPU (its state
+    fits an 8-codeword block) and decode_qc on the CPU."""
+    from ldpc_tpu.sim import build_code
+    from ldpc_tpu.sim.pipeline import select_decoder
     cfg = _qam_cfg(batch=256)
-    rb = make_run_batch(build_code(cfg), cfg, batch=256,
-                        decoder_backend="pallas", batch_tile=128,
-                        interpret=True)
-    assert rb.backend_label == "pallas" and not rb.mc
-
-
-@pytest.mark.slow
-def test_qam_transposed_end_to_end_stats(rng):
-    """Transposed 16-QAM pipeline (Pallas interpret) vs the batch-first
-    reference chain (qc-jnp backend): same BER regime at the preset's
-    operating point. Different RNG layouts -> statistical comparison."""
-    from ldpc_tpu.sim import build_code, make_run_batch
-    B = 512
-    cfg = _qam_cfg(batch=B, max_iter=8)
     code = build_code(cfg)
-    sigma = np.float32(ch.sigma_for(cfg.channel.ebn0_db, code.rate,
-                                    cfg.channel.modulation))
-    rb_t = make_run_batch(code, cfg, batch=B, decoder_backend="pallas",
-                          batch_tile=128, interpret=True)
-    assert rb_t.backend_label == "pallas"
-    rb_bf = make_run_batch(code, cfg, batch=B, decoder_backend="qc-jnp")
-    assert rb_bf.backend_label == "qc-jnp"
-    out_t = np.asarray(rb_t(jax.random.PRNGKey(3), jnp.float32(sigma)))
-    out_bf = np.asarray(rb_bf(jax.random.PRNGKey(4), jnp.float32(sigma)))
-    assert out_t[0] == B and out_bf[0] == B
-    # 6 dB on n=1944 r=3/4 16-QAM with 8 iters: most frames converge on
-    # both paths; iteration averages agree loosely (independent noise).
-    assert out_t[4] > 0.8 * B and out_bf[4] > 0.8 * B
-    it_t, it_bf = out_t[3] / B, out_bf[3] / B
-    assert abs(it_t - it_bf) < 1.5, (it_t, it_bf)
+    assert select_decoder(code, cfg)[1] == "qc-jnp"
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    dec, label = select_decoder(code, cfg)
+    assert label == "qc-cuda" and dec.batch_tile == 8
 
 
-def test_fused_host_rng_rides_transposed_path():
-    """n_points > 1 with HOST rng now takes the transposed chain (round-2
-    limitation: only the MC megakernel could fuse SNR points)."""
+def test_fused_sweep_per_point_counters():
+    """n_points > 1: lane b simulates point b % n_points and the counters
+    come back per point."""
     from ldpc_tpu.config import PRESETS
     from ldpc_tpu.sim import build_code, make_run_batch
     cfg = PRESETS["wifi-648-r12-minsum"]
@@ -114,9 +82,7 @@ def test_fused_host_rng_rides_transposed_path():
         run=dataclasses.replace(cfg.run, batch=256),
         decoder=dataclasses.replace(cfg.decoder, max_iter=4))
     code = build_code(cfg)
-    rb = make_run_batch(code, cfg, batch=256, decoder_backend="pallas",
-                        batch_tile=128, interpret=True, n_points=2)
-    assert rb.backend_label == "pallas" and not rb.mc
+    rb = make_run_batch(code, cfg, batch=256, n_points=2)
     s0 = ch.sigma_for(2.0, code.rate, "bpsk")
     s1 = ch.sigma_for(4.0, code.rate, "bpsk")
     out = np.asarray(rb(jax.random.PRNGKey(5),
@@ -129,16 +95,13 @@ def test_fused_host_rng_rides_transposed_path():
 
 
 @pytest.mark.slow
-def test_fused_qam_sweep_transposed(rng):
-    """Fused multi-SNR + 16-QAM + host RNG through the transposed path:
-    per-lane sigma broadcasts on the trailing batch axis (the round-2
-    batch-first-only limitation). Counters per point, monotone in SNR."""
+def test_fused_qam_sweep():
+    """Fused multi-SNR + 16-QAM: per-lane sigma through the QAM demapper.
+    Counters per point, monotone in SNR."""
     from ldpc_tpu.sim import build_code, make_run_batch
     cfg = _qam_cfg(batch=256, max_iter=4)
     code = build_code(cfg)
-    rb = make_run_batch(code, cfg, batch=256, decoder_backend="pallas",
-                        batch_tile=128, interpret=True, n_points=2)
-    assert rb.backend_label == "pallas" and not rb.mc
+    rb = make_run_batch(code, cfg, batch=256, n_points=2)
     s_lo = ch.sigma_for(4.0, code.rate, "16qam")
     s_hi = ch.sigma_for(8.0, code.rate, "16qam")
     out = np.asarray(rb(jax.random.PRNGKey(2),
@@ -147,10 +110,9 @@ def test_fused_qam_sweep_transposed(rng):
     assert out[4, 1] >= out[4, 0]  # 8 dB stripe converges at least as often
 
 
-def test_odd_symbol_size_keeps_batch_first():
-    """8PSK (3 bits/symbol) does not divide n=648? It does (216) — use a
-    code length that is NOT a multiple of the symbol size to pin the
-    fallback: n=1296 with 32APSK (5 bits) -> batch-first host chain."""
+def test_odd_symbol_size_rejected():
+    """A code length that is NOT a multiple of the symbol size (n=1296 with
+    32APSK, 5 bits) is refused at build time."""
     from ldpc_tpu.config import PRESETS
     from ldpc_tpu.sim import build_code, make_run_batch
     cfg = PRESETS["wifi-648-r12-minsum"]
@@ -162,6 +124,4 @@ def test_odd_symbol_size_keeps_batch_first():
         decoder=dataclasses.replace(cfg.decoder, max_iter=2))
     code = build_code(cfg)
     with pytest.raises(ValueError, match="symbol size"):
-        # 1296 % 5 != 0: the batch-first chain refuses at build time
-        make_run_batch(code, cfg, batch=128, decoder_backend="pallas",
-                       batch_tile=128, interpret=True)
+        make_run_batch(code, cfg, batch=128)

@@ -119,7 +119,7 @@ class TestPipelineIntegration:
             code=CodeConfig(punct_frac=0.125),
             run=RunConfig(batch=256, max_frames=256, target_frame_errors=4),
         )
-        sw = Sweep(cfg, decoder_backend="jnp", batch_tile=256)
+        sw = Sweep(cfg, decoder_backend="jnp")
         res = sw.run([4.0])
         pt = res.points[0]
         assert pt.frames == 256
@@ -152,7 +152,7 @@ class TestShortenConfig:
             code=CodeConfig(shorten_bits=64, punct_frac=0.125),
             run=RunConfig(batch=128, max_frames=128, target_frame_errors=4),
         )
-        sw = Sweep(cfg, decoder_backend="jnp", batch_tile=128)
+        sw = Sweep(cfg, decoder_backend="jnp")
         pt = sw.run([4.0]).points[0]
         assert pt.frames == 128 and 0 <= pt.frame_errs <= 128
 

@@ -2,7 +2,7 @@
 (SURVEY.md §4.2 'Distributed' + 'Integration').
 
 Runs on the 8-fake-device CPU mesh from conftest — the same program that runs
-on a TPU mesh (the fake backend IS the multi-device test double)."""
+on a multi-card mesh (the fake backend IS the multi-device test double)."""
 import json
 import os
 
@@ -157,7 +157,7 @@ def test_multihost_qam_chain_preset():
     cfg = PRESETS["multihost-qam-chain"]
     cfg = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run, batch=64))
     code = build_code(cfg)
-    mesh = make_mesh(shape=(2, 4), axes=("dcn", "ici"))
+    mesh = make_mesh(shape=(2, 4), axes=("host", "device"))
     rb = make_run_batch(code, cfg, batch=64, mesh=mesh, decoder_backend="jnp")
     sigma = np.float32(sigma_for(8.0, code.rate, "16qam"))
     out = np.asarray(rb(jax.random.PRNGKey(0), sigma))
@@ -216,87 +216,26 @@ def test_checkpoint_config_mismatch_rejected(tmp_path):
             [2.0], max_frames=64)
 
 
-def test_mc_mesh_admission():
-    """Round-3 (VERDICT item 5): rng='device' composes with meshes — the
-    megakernel is admitted under shard_map with per-shard tile-base seeds.
-    (The hardware PRNG has no CPU lowering, so execution-level equality —
-    one mc_batch=B run == two mc_batch=B/2 runs at tile bases 0 and T/2,
-    and mesh(1) == mesh-None counters — is validated on the chip by
-    scripts/diag_mc_mesh.py; this test pins the dispatch.)"""
-    import dataclasses
-    from ldpc_tpu.config import PRESETS
-    from ldpc_tpu.sim import build_code, make_run_batch
+@pytest.mark.parametrize("rng_value,loads", [("host", True),
+                                              ("device", False)])
+def test_retired_rng_field(rng_value, loads):
+    """RunConfig.rng is gone; the host threefry chain it selected by default
+    is the only one. Stored configs (results, checkpoints) that carry
+    rng='host' still load and still match for resume; 'device' described
+    another random family and is refused."""
+    import json
+    from ldpc_tpu.config import PRESETS, SimConfig
+    from ldpc_tpu.sim.sweep import _config_compatible
     cfg = PRESETS["wifi-648-r12-minsum"]
-    cfg = dataclasses.replace(
-        cfg,
-        run=dataclasses.replace(cfg.run, batch=2048, rng="device"),
-        decoder=dataclasses.replace(cfg.decoder, max_iter=4))
-    code = build_code(cfg)
-    mesh = make_mesh()  # 8 fake devices
-    rb = make_run_batch(code, cfg, batch=2048, mesh=mesh,
-                        decoder_backend="pallas", batch_tile=128,
-                        interpret=True)
-    assert rb.backend_label == "pallas" and rb.mc
-    # fused multi-SNR + mesh + device RNG: also admitted
-    rb2 = make_run_batch(code, cfg, batch=2048, mesh=mesh,
-                         decoder_backend="pallas", batch_tile=128,
-                         interpret=True, n_points=2)
-    assert rb2.backend_label == "pallas" and rb2.mc
-    # a per-shard batch that cannot tile (not a multiple of 128) falls back
-    cfg3 = dataclasses.replace(
-        cfg, run=dataclasses.replace(cfg.run, batch=512, rng="device"))
-    rb3 = make_run_batch(build_code(cfg3), cfg3, batch=512, mesh=mesh,
-                         decoder_backend="pallas", batch_tile=128,
-                         interpret=True)
-    assert not rb3.mc
-    # review regression: a batch_tile larger than the per-shard batch must
-    # resolve to a divisor of B/mesh.size, not crash the megakernel's
-    # mc_batch % batch_tile assertion
-    cfg4 = dataclasses.replace(
-        cfg, run=dataclasses.replace(cfg.run, batch=3072, rng="device"))
-    rb4 = make_run_batch(build_code(cfg4), cfg4, batch=3072, mesh=mesh,
-                         decoder_backend="pallas", batch_tile=1024,
-                         interpret=True)
-    assert rb4.mc and (3072 // mesh.size) % rb4.batch_tile == 0
+    d = json.loads(cfg.to_json())
+    d["run"]["rng"] = rng_value
+    assert _config_compatible(d, cfg) is loads
+    if loads:
+        assert SimConfig.from_json(json.dumps(d)) == cfg
+    else:
+        with pytest.raises(ValueError, match="no longer supported"):
+            SimConfig.from_json(json.dumps(d))
 
-
-@pytest.mark.slow
-def test_fused_mc_admission():
-    """Fused multi-SNR sweeps (n_points > 1) are admitted into the MC
-    megakernel's per-lane-sigma mode only with rng='device' on Pallas;
-    otherwise they keep the host batch-first path. (The hardware PRNG has
-    no CPU interpret lowering, so exact single-vs-fused equality runs at
-    the KERNEL level with injected words — test_kernels.py
-    test_mc_lane_sigma_matches_scalar — and on hardware via
-    scripts/diag_fused_mc.py; this test pins the dispatch.)"""
-    import dataclasses
-    from ldpc_tpu.config import PRESETS
-    from ldpc_tpu.sim import build_code, make_run_batch
-    cfg = PRESETS["wifi-648-r12-minsum"]
-    cfg = dataclasses.replace(
-        cfg,
-        run=dataclasses.replace(cfg.run, batch=256, rng="device"),
-        decoder=dataclasses.replace(cfg.decoder, max_iter=4))
-    code = build_code(cfg)
-    rb = make_run_batch(code, cfg, batch=256, decoder_backend="pallas",
-                        batch_tile=128, interpret=True, n_points=2)
-    assert rb.backend_label == "pallas" and rb.mc  # megakernel serves fused
-    cfg_host = dataclasses.replace(
-        cfg, run=dataclasses.replace(cfg.run, rng="host"))
-    rb_host = make_run_batch(build_code(cfg_host), cfg_host, batch=256,
-                             decoder_backend="pallas", batch_tile=128,
-                             interpret=True, n_points=2)
-    assert rb_host.backend_label == "pallas" and not rb_host.mc
-    # host-RNG fused mode still runs end-to-end (batch-first path)
-    import jax.numpy as jnp
-    from ldpc_tpu.ops.channel import sigma_for
-    sigma = np.float32(sigma_for(2.0, code.rate, "bpsk"))
-    out = np.asarray(rb_host(jax.random.PRNGKey(5),
-                             jnp.asarray([sigma, sigma])))
-    assert out.shape == (5, 2) and (out[0] == 128).all()
-    # a too-short sigma vector must refuse, not gather-clamp silently
-    with pytest.raises(ValueError, match="sigma of shape"):
-        rb_host(jax.random.PRNGKey(5), jnp.asarray([sigma]))
 
 
 def test_checkpoint_schema_growth_resumes(tmp_path):

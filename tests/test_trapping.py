@@ -108,6 +108,29 @@ class TestMixtureWeights:
         # defensive bound: w <= 1/pi0
         assert (lw <= -np.log(pi0) + 1e-5).all()
 
+    def test_weights_match_float64_at_floor_sizes(self):
+        """The z @ M.T product runs at full float32 precision (a GPU may
+        otherwise use TF32, ~3 decimal digits): the weights at a floor-study
+        size (n=648, large |z.mu| terms) match a float64 NumPy evaluation
+        to 1e-5 relative."""
+        rng = np.random.default_rng(1)
+        n, K, B = 648, 16, 256
+        sigma, delta, pi0 = 0.7, 2.5, 0.5
+        M = (rng.random((K, n)) < 0.02).astype(np.float32)
+        sizes = M.sum(axis=1).astype(np.float32)
+        log_pi = np.log(np.concatenate([[pi0], np.full(K, (1 - pi0) / K)])
+                        ).astype(np.float32)
+        z = rng.normal(0, sigma, (B, n)).astype(np.float32)
+        lw = np.asarray(mixture_log_weight(
+            jnp.asarray(z), jnp.asarray(M), jnp.asarray(sizes),
+            jnp.asarray(log_pi), delta, sigma))
+        s_k = z.astype(np.float64) @ M.T.astype(np.float64)
+        expo = (-2.0 * delta * s_k - delta ** 2 * sizes) / (2 * sigma ** 2)
+        terms = np.concatenate([np.zeros((B, 1)), expo], axis=1) + log_pi
+        mx = terms.max(axis=1, keepdims=True)
+        ref = -(mx[:, 0] + np.log(np.exp(terms - mx).sum(axis=1)))
+        np.testing.assert_allclose(np.exp(lw), np.exp(ref), rtol=1e-5)
+
 
 def _cfg():
     return SimConfig(code=CodeConfig(),
